@@ -6,7 +6,10 @@ setup(
     description="TPU-native knowledge graph embedding framework (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests", "tests.*")),
     include_package_data=True,
-    package_data={"kge_tpu": ["*.yaml", "models/*.yaml"]},
+    package_data={
+        "kge_tpu": ["*.yaml", "models/*.yaml"],
+        "kge_tpu_torch": ["*.yaml", "models/*.yaml", "csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
