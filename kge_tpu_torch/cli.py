@@ -1,16 +1,19 @@
 """Command-line interface (counterpart of ``kge_tpu/cli.py``; reference:
 kge/cli.py).
 
-``python -m kge_tpu_torch eval|valid|test <folder or checkpoint>``
-evaluates a checkpoint written by either package, with every flattened
-configuration key available as a ``--key value`` flag;
-``python -m kge_tpu_torch dump config <source>`` prints a configuration.
-The other verbs of ``kge_tpu`` exit with "not yet ported".
+``python -m kge_tpu_torch start|create <config.yaml>`` starts (or only
+creates) a training job in a new folder, ``resume <folder>`` continues a
+job from its folder's last checkpoint, ``eval|valid|test <folder or
+checkpoint>`` evaluates a checkpoint written by either package; every
+flattened configuration key is available as a ``--key value`` flag.
+``dump config <source>`` prints a configuration. The other verbs of
+``kge_tpu`` exit with "not yet ported".
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import sys
 import traceback
@@ -22,10 +25,13 @@ from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.utils.io import get_checkpoint_file, load_checkpoint
-from kge_tpu_torch.utils.misc import resolve_device
+from kge_tpu_torch.utils.misc import kge_base_dir, resolve_device
 from kge_tpu_torch.utils.seed import seed_from_config
 
-NOT_PORTED = ("start", "create", "resume", "package", "import-libkge")
+NOT_PORTED = ("package", "import-libkge")
+
+#: parser arguments that are not configuration keys
+_NON_CONFIG = ("config", "folder", "run", "command", "checkpoint")
 
 
 def argparse_bool_type(v):
@@ -54,7 +60,18 @@ def create_parser(config: Config) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("kge_tpu_torch")
     subparsers = parser.add_subparsers(title="command", dest="command")
     subparsers.required = True
+    parser_start = subparsers.add_parser(
+        "start", help="Start a new job (create + run)")
+    parser_create = subparsers.add_parser(
+        "create", help="Create a new job folder without running")
+    for p in (parser_start, parser_create):
+        p.add_argument("config", type=str, nargs="?")
+        p.add_argument("--folder", "-f", type=str)
+        p.add_argument("--run", default=(p is parser_start),
+                       type=argparse_bool_type)
+        add_config_flags(p, config)
     for name, help_text in (
+        ("resume", "Resume a prior job from its folder"),
         ("eval", "Evaluate a trained model"),
         ("valid", "Evaluate on the validation split"),
         ("test", "Evaluate on the test split"),
@@ -102,6 +119,15 @@ def _parse_unknown(unknown: List[str]) -> Dict[str, str]:
     return overrides
 
 
+def _collect_overrides(args, config: Config) -> Dict[str, Any]:
+    known = set(Config.flatten(config.options))
+    return {
+        key: value for key, value in vars(args).items()
+        if value is not None and key not in _NON_CONFIG
+        and (key in known or "." in key)
+    }
+
+
 def dump_config(args):
     """Print a configuration from a folder, config.yaml or checkpoint:
     raw, full (default), or only the keys that differ from the defaults."""
@@ -129,9 +155,58 @@ def dump_config(args):
     print(yaml.dump(diff, default_flow_style=False))
 
 
+def _new_job_config(args, unknown: List[str]) -> Optional[Config]:
+    """start/create: the job's config in a new folder (reference:
+    cli.py:198-230); None for ``create`` without ``--run``."""
+    config = Config()
+    if args.config:
+        config.load(args.config, create=True)
+    for key, value in _collect_overrides(args, config).items():
+        if key == "model":
+            config._import(value)
+        config.set(key, value, create=True)
+    for key, value in _parse_unknown(unknown).items():
+        config.set(key, value)  # unknown keys error (typo guard)
+    if args.folder:
+        folder = args.folder
+    else:
+        config_name = (
+            os.path.splitext(os.path.basename(args.config))[0]
+            if args.config else config.get("model") or "job"
+        )
+        timestamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        folder = os.path.join(kge_base_dir(), "local", "experiments",
+                              f"{timestamp}-{config_name}")
+    config.folder = folder
+    if not config.init_folder():
+        raise ValueError(f"output folder {folder} already exists")
+    if args.command == "create" and not args.run:
+        config.log(f"Created job folder {folder}")
+        return None
+    return config
+
+
+def _folder_config(args, unknown: List[str], overrides: Dict[str, str]
+                   ) -> Config:
+    """resume/eval/valid/test: the folder's config with the command
+    line's overrides (reference: cli.py:232-255)."""
+    folder = args.config
+    if os.path.isfile(folder):
+        folder = os.path.dirname(folder) or "."
+    config = Config(folder=folder)
+    config.load(os.path.join(folder, "config.yaml"), create=True)
+    for key, value in _collect_overrides(args, config).items():
+        config.set(key, value, create=True)
+    for key, value in overrides.items():
+        config.set(key, value)
+    for key, value in _parse_unknown(unknown).items():
+        config.set(key, value)  # unknown keys error (typo guard)
+    return config
+
+
 def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
-    """Run a command; for eval/valid/test, return the evaluation's trace
-    entry (metrics included)."""
+    """Run a command; return the job's result (the last epoch's trace
+    entry of a training job, the evaluation's trace entry)."""
     config = Config()
     parser = create_parser(config)
     args, unknown = parser.parse_known_args(argv)
@@ -142,30 +217,37 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
         dump_config(args)
         return None
 
-    # eval/valid/test resume a job folder (reference: cli.py:158-165)
-    overrides = {"job.type": "eval"}
-    if args.command in ("valid", "test"):
-        overrides["eval.split"] = args.command
-    folder = args.config
-    if os.path.isfile(folder):
-        folder = os.path.dirname(folder) or "."
-    config = Config(folder=folder)
-    config.load(os.path.join(folder, "config.yaml"), create=True)
-    known = set(Config.flatten(config.options))
-    for key, value in vars(args).items():
-        if value is not None and (key in known or "." in key):
-            config.set(key, value, create=True)
-    for key, value in overrides.items():
-        config.set(key, value)
-    for key, value in _parse_unknown(unknown).items():
-        config.set(key, value)  # unknown keys error (typo guard)
-    checkpoint = load_checkpoint(get_checkpoint_file(config, args.checkpoint))
+    checkpoint = None
+    if args.command in ("start", "create"):
+        config = _new_job_config(args, unknown)
+        if config is None:
+            return None
+    else:
+        # eval/valid/test resume a job folder as an eval job (reference:
+        # cli.py:158-165)
+        overrides = {}
+        if args.command != "resume":
+            overrides["job.type"] = "eval"
+            if args.command in ("valid", "test"):
+                overrides["eval.split"] = args.command
+        config = _folder_config(args, unknown, overrides)
+        checkpoint_file = get_checkpoint_file(config, args.checkpoint)
+        if checkpoint_file is not None:
+            checkpoint = load_checkpoint(checkpoint_file)
+        else:
+            config.log(
+                "No checkpoint found or specified, starting from scratch..."
+            )
 
     try:
         seed_from_config(config, resolve_device(config))
         config.log("Using folder " + str(config.folder))
         dataset = Dataset.create(config)
-        job = Job.create_from(checkpoint, new_config=config, dataset=dataset)
+        if checkpoint is not None:
+            job = Job.create_from(checkpoint, new_config=config,
+                                  dataset=dataset)
+        else:
+            job = Job.create(config, dataset)
         return job.run()
     except BaseException:
         config.log(traceback.format_exc(), echo=False)

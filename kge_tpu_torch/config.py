@@ -19,8 +19,8 @@ Configs and checkpoints written by ``kge_tpu`` load unchanged: a loaded
 ``load_options`` rewrites each ``kge_tpu.*`` entry to its
 ``kge_tpu_torch.*`` counterpart (entries the port does not have yet are
 dropped), so a class or YAML lookup never imports the JAX package.
-``save_to`` writes the options back in ``kge_tpu``'s form, so a
-checkpoint written here loads in either package.
+``save_to`` and ``save`` write the options back in ``kge_tpu``'s form,
+so a checkpoint or run folder written here loads in either package.
 """
 
 from __future__ import annotations
@@ -424,8 +424,11 @@ class Config:
                           overwrite=overwrite)
 
     def save(self, filename: str):
+        """Write the options as ``save_to`` embeds them (``kge_tpu``'s
+        module names), so either package loads a folder the port made."""
         with open(filename, "w+") as f:
-            f.write(yaml.dump(self.options, default_flow_style=False))
+            f.write(yaml.dump(self.save_to({})["config"],
+                              default_flow_style=False))
 
     def save_to(self, checkpoint: Dict) -> Dict:
         """Embed this config into a checkpoint dict as a plain options

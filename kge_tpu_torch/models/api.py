@@ -18,7 +18,7 @@ with dots (``entity_embedder.weights``, ``relation_embedder.weights``);
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,8 +35,9 @@ S, P, O = 0, 1, 2
 
 
 class Ctx:
-    """Per-call context: mode and non-trainable state. Only evaluation
-    mode is ported; a default-constructed Ctx is eval mode."""
+    """Per-call context: mode and non-trainable state. A
+    default-constructed Ctx is eval mode; ``Ctx(train=True)`` is training
+    mode, where dropout is not yet ported."""
 
     def __init__(self, train: bool = False,
                  state: Optional[Dict[str, Any]] = None):
@@ -66,6 +67,10 @@ class KgeBase(nn.Module, Configurable):
             raw_args = {}
         args = select_initialize_args(name, raw_args)
         return initialize(generator, shape, name, args)
+
+    def penalties(self, ctx: Ctx, **kwargs) -> List[Tuple[str, torch.Tensor]]:
+        """(name, scalar) regularization terms."""
+        return []
 
 
 class RelationalScorer(KgeBase):
@@ -255,6 +260,60 @@ class KgeModel(KgeBase):
     def save_to(self, checkpoint: Dict) -> Dict:
         checkpoint["model"] = {"params": self.params(), "state": {}}
         return checkpoint
+
+    def num_parameters(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    @torch.no_grad()
+    def normalize_params(self):
+        """Apply the embedders' parameter constraints (Lp normalization),
+        in place; the training job calls it after every update."""
+        self.get_s_embedder().normalize_params()
+        self.get_p_embedder().normalize_params()
+
+    def prepare_job(self, job, **kwargs):
+        """Register the num_parameters trace hook on training jobs
+        (reference: kge/model/kge_model.py:587-603)."""
+        from kge_tpu_torch.train.train import TrainingJob
+
+        if isinstance(job, TrainingJob):
+            def append_num_parameters(job_):
+                if job_.current_trace.get("epoch") is not None:
+                    job_.current_trace["epoch"]["num_parameters"] = (
+                        self.num_parameters()
+                    )
+
+            job.post_epoch_hooks.append(append_num_parameters)
+
+    # ------------------------------------------------------------------ penalty
+
+    def penalties(self, ctx: Ctx, batch: Optional[Dict] = None,
+                  **kwargs) -> List[Tuple[str, torch.Tensor]]:
+        """Regularization terms; with a batch, embedder penalties see the
+        batch indexes (for frequency-weighted regularization). Shared s/o
+        embedders are penalized twice, as in the reference
+        (kge/model/kge_model.py:605-651)."""
+        result = self.scorer.penalties(ctx, **kwargs)
+        s_emb, p_emb = self.get_s_embedder(), self.get_p_embedder()
+        if batch is not None and "triples" in batch:
+            triples = batch["triples"]
+            result += p_emb.penalties(ctx, indexes=triples[:, P])
+            if s_emb is self.get_o_embedder():
+                so = torch.stack([triples[:, S], triples[:, O]], dim=1)
+                weighted = s_emb.get_option("regularize_args.weighted")
+                terms = s_emb.penalties(ctx, indexes=so if weighted else None)
+                if not weighted:
+                    terms = [(name, 2.0 * value) for name, value in terms]
+                result += terms
+            else:
+                result += s_emb.penalties(ctx, indexes=triples[:, S])
+                result += self.get_o_embedder().penalties(
+                    ctx, indexes=triples[:, O])
+        else:
+            result += p_emb.penalties(ctx)
+            terms = s_emb.penalties(ctx)
+            result += [(name, 2.0 * value) for name, value in terms]
+        return result
 
     # ------------------------------------------------------------------ access
 

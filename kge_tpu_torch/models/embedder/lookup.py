@@ -10,7 +10,7 @@ between the two packages in both directions.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +27,7 @@ class LookupEmbedder(KgeEmbedder):
                  init_for_load_only: bool = False):
         super().__init__(config, dataset, configuration_key, vocab_size)
         self.normalize_p: float = self.get_option("normalize.p")
+        self.regularize: str = self.check_option("regularize", ["", "lp"])
         round_to = self.get_option("round_dim_to")
         if len(round_to) > 0:
             self.dim = round_to_points(round_to, self.dim)
@@ -63,6 +64,35 @@ class LookupEmbedder(KgeEmbedder):
         p = self.normalize_p
         norms = torch.sum(weights.abs() ** p, dim=-1, keepdim=True) ** (1.0 / p)
         return weights / torch.clamp(norms, min=1e-12)
+
+    @torch.no_grad()
+    def normalize_params(self):
+        if self.normalize_p > 0:
+            self.weights.copy_(self._lp_normalize(self.weights))
+
+    def penalties(self, ctx: Ctx, indexes: Optional[torch.Tensor] = None,
+                  **kwargs) -> List[Tuple[str, torch.Tensor]]:
+        """The Lp penalty (reference: lookup_embedder.py penalty): over the
+        whole table, or frequency-weighted over the batch's ``indexes``
+        (every occurrence summed, divided by their number)."""
+        if self.regularize == "" or self.get_option("regularize_weight") == 0.0:
+            return []
+        p = (
+            self.get_option("regularize_args.p")
+            if self.has_option("regularize_args.p")
+            else 2
+        )
+        weight = self.get_option("regularize_weight")
+        name = f"{self.configuration_key}.L{p}_penalty"
+        if not self.get_option("regularize_args.weighted"):
+            table = self.weights[: self.vocab_size]
+            return [(name, weight / p * torch.sum(table.abs() ** p))]
+        if indexes is None:
+            raise ValueError("weighted regularization needs batch indexes")
+        idx = indexes.reshape(-1)
+        rows = torch.index_select(self.weights, 0, idx)
+        value = weight / p * torch.sum(rows.abs() ** p) / idx.shape[0]
+        return [(name, value)]
 
     # ------------------------------------------------------------------ embed
 

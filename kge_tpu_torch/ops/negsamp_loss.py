@@ -1,0 +1,180 @@
+"""Fused shared-negative cross-entropy loss (counterpart of
+``kge_tpu/ops/pallas/negsamp_loss.py``).
+
+With shared negative sampling every row of a batch scores the same
+unique candidates; which of them (and how often) a row drew is its row of
+``counts`` (the count form of the reference's per-row gather,
+kge/job/train_negative_sampling.py:177-186). Per row,
+
+    lse_b = log(exp(pos_b) + sum_n counts[b, n] * exp(q_b . cand_n))
+    loss  = sum_b w_b * (lse_b - pos_b)
+
+``shared_ce_loss`` is a ``torch.autograd.Function``: on a CUDA tensor its
+forward launches the hand-written kernel ``csrc/negsamp_loss.cu`` (and
+counts the launch in ``shared_ce_loss.launches``); on a CPU tensor it
+takes the plain version ``shared_ce_loss_reference``. The backward is
+plain torch in both cases, as ``kge_tpu``'s custom VJP is plain XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from kge_tpu_torch.ops import native
+
+
+def expand_counts(base: torch.Tensor, nu: int, drop: Optional[torch.Tensor],
+                  rows: int) -> torch.Tensor:
+    """[rows, num+1] candidate multiplicities from the shared sample's
+    factors: the base multiplicities [num+1], the number of unique
+    candidates ``nu`` and, for ``default`` sharing, each row's dropped
+    position [rows] (its mass moves to the extra candidate at ``nu``).
+    Vector ops on the device, no scatter. KEEP IN LOCKSTEP with
+    ``kge_tpu_torch.train.sampler.BatchNegativeSample.counts`` (numpy)
+    and ``kge_tpu``'s ``_fused_loss``."""
+    num1 = base.shape[-1]
+    if drop is None:  # naive sharing: every row sees the same multiset
+        return base.expand(rows, num1).contiguous()
+    cols = torch.arange(num1, device=base.device)
+    extra = torch.where(drop < nu, base[drop.clamp(0, num1 - 1)], 0.0)
+    counts = base[None, :] * (cols[None, :] != drop[:, None])
+    return torch.where(cols[None, :] == nu, extra[:, None], counts)
+
+
+def shared_ce_loss_reference(q: torch.Tensor, cand: torch.Tensor,
+                             pos: torch.Tensor, counts: torch.Tensor,
+                             w: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel, line for line ``kge_tpu``'s
+    ``shared_ce_loss_xla``; returns (loss, lse). Undrawn columns (counts
+    0) are kept out of the row max. On a CUDA device the matmul follows
+    ``torch.backends.cuda.matmul.allow_tf32``, which training keeps
+    False."""
+    scores = q @ cand.T
+    s_masked = torch.where(counts > 0, scores, -torch.inf)
+    if cand.shape[0]:
+        m = torch.maximum(torch.amax(s_masked, dim=1), pos)
+    else:
+        m = pos
+    z = torch.exp(pos - m) + torch.sum(
+        counts * torch.exp(s_masked - m[:, None]), dim=1
+    )
+    lse = m + torch.log(z)
+    return torch.sum(w * (lse - pos)), lse
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = native.load("negsamp_loss")
+    lib.kge_shared_ce_loss.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.kge_shared_ce_loss.restype = ctypes.c_int
+    lib.kge_shared_ce_loss_blocks.argtypes = [ctypes.c_int]
+    lib.kge_shared_ce_loss_blocks.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, cand, pos, counts, w):
+    tensors = dict(q=q, cand=cand, pos=pos, counts=counts, w=w)
+    for name, x in tensors.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"shared_ce_loss: {name} must be a tensor")
+        if x.dtype != torch.float32:
+            raise TypeError(
+                f"shared_ce_loss: {name} must be float32, got {x.dtype}"
+            )
+        if x.device != q.device:
+            raise ValueError(
+                f"shared_ce_loss: {name} is on {x.device}, q on {q.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"shared_ce_loss: {name} must be contiguous")
+    if q.dim() != 2 or cand.dim() != 2 or q.shape[1] != cand.shape[1]:
+        raise ValueError(
+            f"shared_ce_loss: q [B, D] and cand [N, D] expected, got "
+            f"{tuple(q.shape)} and {tuple(cand.shape)}"
+        )
+    B, N = q.shape[0], cand.shape[0]
+    if (tuple(pos.shape) != (B,) or tuple(w.shape) != (B,)
+            or tuple(counts.shape) != (B, N)):
+        raise ValueError(
+            f"shared_ce_loss: pos [{B}], w [{B}] and counts [{B}, {N}] "
+            f"expected, got {tuple(pos.shape)}, {tuple(w.shape)} and "
+            f"{tuple(counts.shape)}"
+        )
+    if max(B, N, q.shape[1]) >= 2 ** 31:
+        raise ValueError("shared_ce_loss: sizes must be below 2^31")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"shared_ce_loss: unsupported device {q.device}")
+
+
+def shared_ce_forward(q: torch.Tensor, cand: torch.Tensor,
+                      pos: torch.Tensor, counts: torch.Tensor,
+                      w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, lse) without gradients: the kernel on a CUDA device, the
+    plain version on the CPU. Arguments as for ``shared_ce_loss``."""
+    _check(q, cand, pos, counts, w)
+    if q.device.type == "cpu":
+        return shared_ce_loss_reference(q, cand, pos, counts, w)
+    B, D = q.shape
+    N = cand.shape[0]
+    if B == 0:
+        return q.new_zeros(()), q.new_empty((0,))
+    lib = _library()
+    lse = torch.empty(B, dtype=torch.float32, device=q.device)
+    partials = torch.empty(lib.kge_shared_ce_loss_blocks(B),
+                           dtype=torch.float32, device=q.device)
+    loss = torch.empty((), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.kge_shared_ce_loss(
+            q.data_ptr(), cand.data_ptr(), pos.data_ptr(), counts.data_ptr(),
+            w.data_ptr(), lse.data_ptr(), partials.data_ptr(),
+            loss.data_ptr(), B, N, D,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"negsamp_loss kernel launch failed with CUDA error {err}"
+        )
+    shared_ce_loss.launches += 1
+    return loss, lse
+
+
+class _SharedCELoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, cand, pos, counts, w):
+        loss, lse = shared_ce_forward(q, cand, pos, counts, w)
+        ctx.save_for_backward(q, cand, pos, counts, w, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        """``kge_tpu``'s ``_bwd``: recompute the scores; undrawn columns
+        are masked before the exponential is weighted, so one scoring far
+        above lse gives no 0 * inf."""
+        q, cand, pos, counts, w, lse = ctx.saved_tensors
+        scores = q @ cand.T
+        p = torch.where(counts > 0, counts * torch.exp(scores - lse[:, None]),
+                        0.0)
+        gw = g * w
+        d_pos = gw * (torch.exp(pos - lse) - 1.0)
+        d_scores = gw[:, None] * p
+        return d_scores @ cand, d_scores.T @ q, d_pos, None, None
+
+
+def shared_ce_loss(q: torch.Tensor, cand: torch.Tensor, pos: torch.Tensor,
+                   counts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_b w[b] * (logsumexp({pos[b]} u multiset of row b's candidate
+    scores) - pos[b]), differentiable in q, cand and pos.
+
+    q [B, D] query vectors, cand [N, D] unique candidate vectors, pos [B]
+    positive scores, counts [B, N] multiplicity of each candidate in row
+    b's sample, w [B] row weights: float32, contiguous, on one device."""
+    return _SharedCELoss.apply(q, cand, pos, counts, w)
+
+
+shared_ce_loss.launches = 0

@@ -1,8 +1,9 @@
 """Job base: factory, hooks, tracing (counterpart of
 ``kge_tpu/train/job.py``; reference: kge/job/job.py).
 
-Jobs are host-side orchestration. The port runs evaluation jobs so far;
-``job.type`` train and search raise "not yet ported".
+Jobs are host-side orchestration. The port runs training (negative
+sampling) and evaluation jobs; ``job.type`` search raises "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -62,18 +63,25 @@ class Job(Configurable):
 
     @staticmethod
     def create(config: Config, dataset: Optional[Dataset] = None,
-               parent_job: Optional["Job"] = None, model=None) -> "Job":
-        """Create a job from ``job.type`` (only eval is ported)."""
+               parent_job: Optional["Job"] = None, model=None,
+               forward_only: bool = False) -> "Job":
+        """Create a job from ``job.type`` (train and eval are ported)."""
         from kge_tpu_torch.evaluation.eval import EvaluationJob
+        from kge_tpu_torch.train.train import TrainingJob
 
         if dataset is None:
             dataset = Dataset.create(config)
         job_type = config.get("job.type")
+        if job_type == "train":
+            return TrainingJob.create(
+                config, dataset, parent_job=parent_job, model=model,
+                forward_only=forward_only,
+            )
         if job_type == "eval":
             return EvaluationJob.create(
                 config, dataset, parent_job=parent_job, model=model
             )
-        if job_type in ("train", "search"):
+        if job_type == "search":
             raise NotImplementedError(
                 f"job.type {job_type} is not yet ported to kge_tpu_torch"
             )

@@ -1,0 +1,261 @@
+"""Negative samplers on the host, in numpy (the port's own copy of
+``kge_tpu/train/sampler.py``; reference: kge/util/sampler.py).
+
+Every draw comes from the sampler's numpy ``Generator`` in the same
+order as in ``kge_tpu``, so a sampler seeded alike draws bit-identical
+batches in both packages. Batches keep ``kge_tpu``'s fixed-shape layout:
+
+- non-shared: ``negatives`` [B, num] int32
+- shared: ``unique`` [num+1] int32 (padded) plus the factored form
+  (``num_unique``, ``repeat_indexes``, ``drop``) that expands to the
+  per-row ``gather`` column map or the per-row candidate multiplicities
+  (``counts``, what the fused loss consumes).
+
+Ported: the uniform sampler, shared and not shared. Filtering of
+positives, the frequency sampler and on-device sampling raise "not yet
+ported".
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from kge_tpu_torch.config import Config, Configurable
+from kge_tpu_torch.dataset import Dataset
+
+S, P, O = 0, 1, 2
+SLOT_STR = ["s", "p", "o"]
+SLOTS = [S, P, O]
+
+
+class BatchNegativeSample:
+    """Fixed-shape negative sample for one slot of a batch; shared
+    samples are stored in factored form and expand on demand."""
+
+    def __init__(self, slot: int, num_samples: int,
+                 negatives: Optional[np.ndarray] = None,
+                 unique: Optional[np.ndarray] = None,
+                 num_unique: Optional[int] = None,
+                 repeat_indexes: Optional[np.ndarray] = None,
+                 drop: Optional[np.ndarray] = None,
+                 batch_size: Optional[int] = None):
+        self.slot = slot
+        self.num_samples = num_samples
+        self._negatives = negatives
+        self.unique = unique
+        self._gather = None
+        self.num_unique = num_unique
+        self.repeat_indexes = repeat_indexes
+        self.drop = drop
+        self._batch_size = batch_size
+
+    @property
+    def shared(self) -> bool:
+        return self.unique is not None
+
+    @property
+    def gather(self) -> Optional[np.ndarray]:
+        """[B, num] column map into ``unique`` (built lazily)."""
+        if self._gather is None and self.unique is not None:
+            nu = self.num_unique
+            if self.drop is None:  # naive: every row sees the same columns
+                cols = np.broadcast_to(
+                    np.arange(nu, dtype=np.int32), (self._batch_size, nu)
+                )
+            else:
+                # default: the dropped position is replaced by the extra
+                # candidate parked at position num_unique
+                cols = np.broadcast_to(
+                    np.arange(nu, dtype=np.int64), (len(self.drop), nu)
+                ).copy()
+                cols[cols == self.drop[:, None]] = nu
+                cols = cols.astype(np.int32)
+            if len(self.repeat_indexes):
+                cols = np.concatenate(
+                    [cols, cols[:, self.repeat_indexes]], axis=1
+                )
+            self._gather = cols
+        return self._gather
+
+    def count_factors(self):
+        """The [num+1] float32 base multiplicities (1 + repeats per live
+        column, 0 at the extra and padding positions) and the per-row
+        dropped position (None for naive sharing)."""
+        num, nu = self.num_samples, self.num_unique
+        base = np.zeros(num + 1, dtype=np.float32)
+        base[:nu] = 1.0
+        if len(self.repeat_indexes):
+            base[:nu] += np.bincount(
+                self.repeat_indexes, minlength=nu
+            ).astype(np.float32)
+        return base, self.drop
+
+    def counts(self) -> np.ndarray:
+        """[B, num+1] float32 multiplicity of each unique candidate in
+        each row's sample. KEEP IN LOCKSTEP with the device expansion
+        ``kge_tpu_torch.ops.negsamp_loss.expand_counts``."""
+        num, nu = self.num_samples, self.num_unique
+        base, drop = self.count_factors()
+        if drop is None:
+            return np.broadcast_to(base, (self._batch_size, num + 1))
+        B = len(drop)
+        counts = np.tile(base, (B, 1))
+        extra = np.where(
+            drop < nu, base[np.minimum(drop, nu - 1)], 0.0
+        ).astype(np.float32)
+        counts[np.arange(B), drop] = 0.0
+        counts[:, nu] = extra
+        return counts
+
+    def materialize(self) -> np.ndarray:
+        """[B, num] negative indexes (expands the shared representation)."""
+        if self._negatives is not None:
+            return self._negatives
+        return self.unique[self.gather]
+
+
+class KgeSampler(Configurable):
+    def __init__(self, config: Config, configuration_key: str,
+                 dataset: Dataset):
+        super().__init__(config, configuration_key)
+        self.dataset = dataset
+        self.num_samples = np.zeros(3, dtype=np.int64)
+        self.vocabulary_size = np.zeros(3, dtype=np.int64)
+        self.shared = self.get_option("shared")
+        self.shared_type = self.check_option("shared_type",
+                                             ["naive", "default"])
+        self.with_replacement = self.get_option("with_replacement")
+        if not self.with_replacement and not self.shared:
+            raise ValueError(
+                "without-replacement sampling requires shared negative "
+                "sampling"
+            )
+        for slot in SLOTS:
+            slot_str = SLOT_STR[slot]
+            self.num_samples[slot] = self.get_option(f"num_samples.{slot_str}")
+            if self.get_option(f"filtering.{slot_str}"):
+                raise NotImplementedError(
+                    "negative_sampling.filtering is not yet ported to "
+                    "kge_tpu_torch"
+                )
+            self.vocabulary_size[slot] = (
+                dataset.num_relations() if slot == P
+                else dataset.num_entities()
+            )
+        # auto-complete sample counts (-1: copy from S)
+        for slot, copy_from in [(S, O), (P, None), (O, S)]:
+            if self.num_samples[slot] < 0:
+                if copy_from is not None and self.num_samples[copy_from] > 0:
+                    self.num_samples[slot] = self.num_samples[copy_from]
+                else:
+                    self.num_samples[slot] = 0
+        self._rng = np.random.default_rng()
+
+    def seed(self, seed) -> None:
+        """Reset the sampler's numpy generator (any SeedSequence entropy:
+        the trainer passes (seed, epoch))."""
+        self._rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def create(config: Config, configuration_key: str,
+               dataset: Dataset) -> "KgeSampler":
+        sampling_type = config.get(configuration_key + ".sampling_type")
+        if sampling_type == "uniform":
+            return KgeUniformSampler(config, configuration_key, dataset)
+        if sampling_type == "frequency":
+            raise NotImplementedError(
+                "the frequency sampler is not yet ported to kge_tpu_torch"
+            )
+        raise ValueError(configuration_key + ".sampling_type")
+
+    def sample(self, positive_triples: np.ndarray, slot: int,
+               num_samples: Optional[int] = None) -> BatchNegativeSample:
+        if num_samples is None:
+            num_samples = int(self.num_samples[slot])
+        if self.shared:
+            return self._sample_shared(positive_triples, slot, num_samples)
+        negatives = self._sample(positive_triples, slot, num_samples)
+        return BatchNegativeSample(slot, num_samples, negatives=negatives)
+
+    def _sample(self, positive_triples: np.ndarray, slot: int,
+                num_samples: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def _sample_shared(self, positive_triples: np.ndarray, slot: int,
+                       num_samples: int) -> BatchNegativeSample:
+        raise NotImplementedError
+
+
+class KgeUniformSampler(KgeSampler):
+    def _sample(self, positive_triples, slot, num_samples):
+        return self._rng.integers(
+            self.vocabulary_size[slot],
+            size=(len(positive_triples), num_samples),
+            dtype=np.int64,
+        ).astype(np.int32)
+
+    def _sample_shared(self, positive_triples, slot, num_samples):
+        """Shared sampling with the positive-drop trick (reference:
+        kge/util/sampler.py:597-698), emitted in factored form."""
+        batch_size = len(positive_triples)
+        voc = int(self.vocabulary_size[slot])
+        if self.with_replacement:
+            # distribution of #distinct values in a WR sample
+            base = voc if self.shared_type == "naive" else voc - 1
+            num_unique = len(
+                np.unique(self._rng.integers(base, size=num_samples))
+            )
+        else:
+            num_unique = num_samples
+        take = num_unique if self.shared_type == "naive" else num_unique + 1
+        unique = self._choice_without_replacement(voc, take)
+        if num_unique != num_samples:
+            repeat_indexes = self._rng.integers(
+                num_unique, size=num_samples - num_unique
+            )
+        else:
+            repeat_indexes = np.zeros(0, dtype=np.int64)
+
+        drop = None
+        if self.shared_type != "naive":
+            positives = positive_triples[:, slot]
+            drop = self._rng.integers(num_unique + 1, size=batch_size)
+            # rows whose positive is among the unique samples drop exactly it
+            pos_in_unique = np.searchsorted(np.sort(unique), positives)
+            order = np.argsort(unique, kind="stable")
+            sorted_unique = unique[order]
+            hit = (pos_in_unique < len(unique)) & (
+                sorted_unique[np.minimum(pos_in_unique, len(unique) - 1)]
+                == positives
+            )
+            drop = np.where(
+                hit, order[np.minimum(pos_in_unique, len(unique) - 1)], drop
+            )
+        # pad unique to the static length num_samples+1
+        padded = np.zeros(num_samples + 1, dtype=np.int32)
+        padded[: len(unique)] = unique
+        if 0 < len(unique) < num_samples + 1:
+            padded[len(unique):] = unique[0]
+        return BatchNegativeSample(
+            slot, num_samples, unique=padded, num_unique=num_unique,
+            repeat_indexes=repeat_indexes, drop=drop, batch_size=batch_size,
+        )
+
+    def _choice_without_replacement(self, voc: int, take: int) -> np.ndarray:
+        """Uniform ordered sample without replacement: ``choice`` when
+        ``take`` is a large share of ``voc``, else i.i.d. draws with the
+        collisions redrawn (same distribution, O(take))."""
+        if take * 8 >= voc:
+            return self._rng.choice(
+                voc, size=take, replace=False
+            ).astype(np.int32)
+        out = self._rng.integers(voc, size=take)
+        while True:
+            uniq, first = np.unique(out, return_index=True)
+            if len(uniq) == take:
+                return out.astype(np.int32)
+            dup = np.ones(take, dtype=bool)
+            dup[first] = False
+            out[dup] = self._rng.integers(voc, size=int(dup.sum()))

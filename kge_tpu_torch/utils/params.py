@@ -9,7 +9,7 @@ keys of ``state_dict()`` are that tree's paths joined with dots.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -43,3 +43,19 @@ def params_from_state_dict(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().numpy()
     return tree
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested container in the order
+    ``jax.tree_util.tree_leaves`` gives them: dict values by sorted key,
+    tuples and lists in order (named tuples, including the stand-ins the
+    checkpoint unpickler makes of optax's, are tuples), ``None`` and
+    empty containers no leaf. Checkpoints' ``opt_state`` is read and
+    written by this order."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
