@@ -45,7 +45,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through K2; the losses must be finite and fall; ``resume`` continues
    to epoch 3; epoch 1 is re-run from ``checkpoint_00000.pt`` on the card
    and on the host (plain K1) and the losses compared; a last epoch
-   under torch.profiler prints where a training epoch's time goes.
+   under torch.profiler prints where a training epoch's time goes. At
+   this size ``tpu.sparse_updates: auto`` keeps the tables dense: K3 must
+   not launch;
+7. K3 kernel phase (run before the eval phase): ``adagrad_row_update``
+   and ``sgd_row_update`` (``csrc/row_update.cu``) against their plain
+   versions on the card, at the Wikidata5M training shape (a [4,818,680,
+   128] table and sum, 2,306 sorted distinct ids spread over it, 0 and
+   V-1 among them), at the relation shape (832 rows, all touched) and on
+   constructed cases (a run of equal ids with its gradient at the last
+   position, zero-gradient rows, a NaN gradient element): table and sum
+   bit for bit (at most 1 ulp, with the count printed), every untouched
+   row unchanged; times at the entity shape;
+8. SGD phase: one epoch of plain SGD with row-sparse updates
+   (``tpu.sparse_updates always``) on the FB15k-237-size graph, 2 K3 SGD
+   launches a step (532), against the same epoch with dense SGD on the
+   card (first batch within 1e-6 relative, epoch within 1e-5);
+9. Wikidata5M phase, the row-sparse path: a synthetic graph with
+   Wikidata5M's sizes (4,818,679 entities, 828 relations, its train split
+   cut to 500,000 triples, its 5,163 / 5,133 valid and test triples) and
+   ``start`` of ``examples/wikidata5m-complex-train.yaml`` as it is for
+   one epoch, then ``valid``: row-sparse updates must be on, K3 Adagrad
+   and K1 launched 978 times each, K2 42 times, the loss finite and the
+   MRR in (0, 1]. From the same ``checkpoint_00000.pt``, one epoch each
+   row-sparse on the card (profiled), dense on the card and row-sparse
+   on the host (plain K1 and K3): first batch within 1e-5 relative and
+   epoch within 1e-3. Prints ms per step, triples/s, set-up and
+   checkpoint-save seconds and peak device memory. It needs about 10 GB
+   of disk under ``local/`` (two 4.9 GB checkpoints at a time).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero when no CUDA device is present or the package
@@ -55,6 +82,8 @@ is missing.
 from __future__ import annotations
 
 import argparse
+import gc
+import itertools
 import json
 import math
 import os
@@ -80,10 +109,23 @@ FB15K237 = dict(entities=14541, relations=237,
 EVAL_BATCH = 100
 DIM = 128
 W5M_ENTITIES = 4818679
+# Wikidata5M's sizes (bench.py section_w5m, benchmarks/probe_real_w5m.py),
+# its train split cut from 20.6M to 500,000 triples, its own valid and
+# test splits
+WIKIDATA5M = dict(entities=W5M_ENTITIES, relations=828,
+                  splits=dict(train=500000, valid=5163, test=5133))
+W5M_RECIPE = os.path.join("examples", "wikidata5m-complex-train.yaml")
 ATOL, RTOL = 1e-5, 1e-4
 # the training main path (examples/wikidata5m-complex-train.yaml)
 TRAIN_BATCH, NEGATIVES, VALID_BATCH = 1024, 128, 256
 TRAIN_STEPS = math.ceil(FB15K237["splits"]["train"] / TRAIN_BATCH)
+W5M_STEPS = math.ceil(WIKIDATA5M["splits"]["train"] / TRAIN_BATCH)
+# rows a step touches: 2 per triple and 128 + 1 shared negatives per
+# entity slot; every relation row (828, padded to 832)
+W5M_ENTITY_ROWS = 2 * TRAIN_BATCH + 2 * (NEGATIVES + 1)
+W5M_RELATION_ROWS = 832
+# K3's inputs: the recipe's learning rate, Adagrad's default eps
+K3_LR, K3_EPS = 0.2, 1e-10
 
 
 def fail(message: str):
@@ -229,14 +271,14 @@ def kernel_phase(rc, seed, device) -> dict:
 # ----------------------------------------------------------------- eval
 
 
-def write_dataset(folder: str, seed: int):
-    """A synthetic knowledge graph with FB15k-237's sizes: distinct
-    triples, entity and relation frequencies Zipf-skewed (exponent 1),
-    so some queries have hundreds of filtered answers as in the real
-    graph."""
+def write_dataset(folder: str, seed: int, sizes=FB15K237):
+    """A synthetic knowledge graph with the given sizes (FB15k-237's by
+    default): distinct triples, entity and relation frequencies
+    Zipf-skewed (exponent 1), so some queries have hundreds of filtered
+    answers as in the real graph."""
     rng = np.random.default_rng(seed)
-    E, R = FB15K237["entities"], FB15K237["relations"]
-    total = sum(FB15K237["splits"].values())
+    E, R = sizes["entities"], sizes["relations"]
+    total = sum(sizes["splits"].values())
     pe = 1.0 / np.arange(1, E + 1)
     pr = 1.0 / np.arange(1, R + 1)
     ent = rng.permutation(E)
@@ -252,7 +294,7 @@ def write_dataset(folder: str, seed: int):
     triples = triples[rng.permutation(len(triples))[:total]]
     os.makedirs(folder)
     start = 0
-    for split, n in FB15K237["splits"].items():
+    for split, n in sizes["splits"].items():
         np.savetxt(os.path.join(folder, f"{split}.del"),
                    triples[start:start + n], fmt="%d", delimiter="\t")
         start += n
@@ -290,7 +332,7 @@ def write_checkpoint(run_folder: str, dataset_folder: str, seed: int,
     save_checkpoint(config.checkpoint_file("best"), checkpoint)
 
 
-def eval_phase(rc, seed, device, scratch) -> dict:
+def eval_phase(rc, kernels, seed, device, scratch) -> dict:
     from kge_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -301,12 +343,14 @@ def eval_phase(rc, seed, device, scratch) -> dict:
     print(f"eval setup (dataset + checkpoint): "
           f"{time.perf_counter() - t0} s", flush=True)
 
-    rc.rank_counts.launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     trace = cli.main(["test", run_folder])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = rc.rank_counts.launches
+    expect_counts("the eval", counts(kernels), dict(
+        shared_ce_loss=0, adagrad_row_update=0, sgd_row_update=0))
 
     n_test = FB15K237["splits"]["test"]
     expected = 2 * math.ceil(n_test / EVAL_BATCH)
@@ -343,19 +387,37 @@ def eval_phase(rc, seed, device, scratch) -> dict:
     return dict(launches=launches, dataset_folder=dataset_folder)
 
 
-def profile_run(label: str, span_prefix: str, run):
+def profile_run(label: str, span_prefix: str, run, epoch_only=False):
     """Where a run's time goes: ``run()`` (which returns a trace entry with
     ``epoch_time``) under torch.profiler; prints the host time of the
     ``record_function`` spans named ``span_prefix*``, the device time by
     kernel, and the device's busy share of the epoch (the profiler's own
-    cost included)."""
+    cost included). With ``epoch_only`` the profiler records the training
+    epoch alone (started and stopped by the job's epoch hooks), not the
+    checkpoint loads and saves around it. Returns the trace entry and the
+    device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.train.train import TrainingJob
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trace = run()
-        torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if epoch_only:
+        def window(job):
+            if isinstance(job, TrainingJob):
+                job.pre_epoch_hooks.append(lambda _: prof.start())
+                job.post_epoch_hooks.append(
+                    lambda _: (torch.cuda.synchronize(), prof.stop()))
+
+        Job.job_created_hooks.append(window)
+        try:
+            trace = run()
+        finally:
+            Job.job_created_hooks.remove(window)
+    else:
+        with prof:
+            trace = run()
+            torch.cuda.synchronize()
     spans, device = {}, {}
     for e in prof.events():
         if e.name.startswith(span_prefix):
@@ -375,6 +437,7 @@ def profile_run(label: str, span_prefix: str, run):
     if device_ms == 0:
         print(f"{label} profile: the profiler saw no device time; device "
               "busy share not measured", flush=True)
+    return trace, device
 
 
 # ----------------------------------------------------------------- K1
@@ -499,6 +562,186 @@ def k1_phase(nl, seed, device) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+# ----------------------------------------------------------------- K3
+
+
+def make_k3_inputs(V, R, D, seed, device):
+    """Seeded inputs of a row update: a table of unit-scale entries,
+    Adagrad sums in [0, 2), R sorted distinct ids spread over the table
+    (0 and V-1 among them; every row when R == V) and unit-scale gradient
+    rows. Returns [table, sum, uniq (int64), rows_g]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn(V, D, generator=g, device=device)
+    ssum = 2.0 * torch.rand(V, D, generator=g, device=device)
+    if R == V:
+        uniq = torch.arange(V, device=device)
+    else:
+        inner = torch.randperm(V - 2, generator=g, device=device)[:R - 2] + 1
+        ends = torch.tensor([0, V - 1], device=device)
+        uniq = torch.sort(torch.cat([ends, inner])).values
+    rows_g = torch.randn(R, D, generator=g, device=device)
+    return [table, ssum, uniq.contiguous(), rows_g]
+
+
+def constructed_k3_inputs(inputs):
+    """Positions 10-12 become a run of one id whose gradient sits at its
+    last position only; rows 20-22 have zero gradients; one element of
+    row 30 is NaN (it must stay in its element)."""
+    table, ssum, uniq, rows_g = (x.clone() for x in inputs)
+    uniq[11:13] = uniq[10]
+    rows_g[10:12] = 0.0
+    rows_g[20:23] = 0.0
+    rows_g[30, 5] = float("nan")
+    return [table, ssum, uniq, rows_g]
+
+
+def ulp_distance(a, b):
+    """Elementwise distance in units in the last place (two NaNs: 0)."""
+    ia, ib = (x.view(torch.int32).long() for x in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return torch.where(both_nan, torch.zeros_like(ia), (ia - ib).abs())
+
+
+def kernel_device_ms(fn, reps: int, name_part: str) -> float:
+    """Mean device milliseconds of the kernels named ``*name_part*`` per
+    call of ``fn``, from torch.profiler (a wrapper call's CUDA-event time
+    also holds the host's launch work when that is the longer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name_part in e.name
+               ) / 1e3 / reps
+
+
+def run_k3(ru, optimizer, inputs, kernel: bool):
+    """One update of fresh copies of ``inputs``: the kernel (the
+    wrapper) or its plain version; returns (table, sum)."""
+    table, ssum, uniq, rows_g = (x.clone() for x in inputs)
+    if optimizer == "adagrad":
+        fn = (ru.adagrad_row_update if kernel
+              else ru.adagrad_row_update_reference)
+        fn(table, ssum, uniq, rows_g, K3_LR, K3_EPS)
+    else:
+        fn = ru.sgd_row_update if kernel else ru.sgd_row_update_reference
+        fn(table, uniq, rows_g, K3_LR)
+    torch.cuda.synchronize()
+    return table, ssum
+
+
+def check_k3(ru, optimizer, label, inputs) -> int:
+    """Kernel vs plain version: table and sum bit for bit (or within one
+    ulp, with the count printed); every row outside uniq bit-unchanged.
+    Returns the largest ulp distance."""
+    got = run_k3(ru, optimizer, inputs, kernel=True)
+    want = run_k3(ru, optimizer, inputs, kernel=False)
+    table, ssum, uniq, rows_g = inputs
+    touched = torch.zeros(table.shape[0], dtype=torch.bool,
+                          device=table.device)
+    touched[uniq] = True
+    worst = 0
+    for name, g, w, before in zip(("table", "sum"), got, want,
+                                  (table, ssum)):
+        # the touched rows against the plain version; the others below
+        # against the input (the plain version writes only uniq's rows)
+        ulps = ulp_distance(g[uniq], w[uniq])
+        n_diff, largest = int((ulps > 0).sum()), int(ulps.max())
+        worst = max(worst, largest)
+        if n_diff:
+            print(f"row_update {optimizer} {label}: {name} differs from the "
+                  f"plain version in {n_diff} elements, by at most "
+                  f"{largest} ulp", flush=True)
+        if largest > 1:
+            fail(f"row_update {optimizer} {label}: {name} more than one ulp "
+                 "from the plain version")
+        moved = (g.view(torch.int32) != before.view(torch.int32)).any(dim=1)
+        if bool((moved & ~touched).any()):
+            fail(f"row_update {optimizer} {label}: {name} changed a row "
+                 "outside uniq")
+    nan_rows = torch.isnan(rows_g).any(dim=1)
+    if bool(nan_rows.any()):
+        expect = torch.zeros_like(got[0], dtype=torch.bool)
+        expect[uniq[nan_rows]] = torch.isnan(rows_g[nan_rows])
+        if not torch.equal(torch.isnan(got[0]), expect):
+            fail(f"row_update {optimizer} {label}: a NaN gradient left its "
+                 "element")
+    print(f"row_update {optimizer} {label}: V={table.shape[0]} "
+          f"R={uniq.shape[0]} D={table.shape[1]}: table and sum "
+          f"{'bit-equal to' if worst == 0 else 'within 1 ulp of'} the plain "
+          "version, untouched rows unchanged", flush=True)
+    return worst
+
+
+def k3_phase(ru, seed, device) -> dict:
+    """K3 on the card: the Wikidata5M entity shape, the relation shape
+    and constructed cases, Adagrad and SGD; then times at the entity
+    shape, each launch on another 2,306 rows (20 sets: 118 MB, beyond the
+    50 MB L2, as a training step finds the sum rows)."""
+    D = DIM
+    V = W5M_ENTITIES + 1  # padded to a multiple of 8
+    main = make_k3_inputs(V, W5M_ENTITY_ROWS, D, seed, device)
+    relations = make_k3_inputs(W5M_RELATION_ROWS, W5M_RELATION_ROWS, D,
+                               seed + 1, device)
+    special = constructed_k3_inputs(main)
+    out = {}
+    for optimizer in ("adagrad", "sgd"):
+        err = check_k3(ru, optimizer, "wikidata5m entity shape", main)
+        err = max(err, check_k3(ru, optimizer, "relation shape", relations))
+        err = max(err, check_k3(ru, optimizer, "constructed cases", special))
+        out[optimizer] = dict(max_abs_err=err)
+    del special, relations
+
+    table, ssum, _, rows_g = main
+    R = W5M_ENTITY_ROWS
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    id_sets = [torch.sort(torch.randperm(V, generator=gen, device=device)[:R]
+                          ).values for _ in range(20)]
+
+    def cycling(fn):
+        sets = itertools.cycle(id_sets)
+        return lambda: fn(next(sets))
+
+    times = {
+        "adagrad": (
+            lambda u: ru.adagrad_row_update(table, ssum, u, rows_g, K3_LR,
+                                            K3_EPS),
+            lambda u: ru.adagrad_row_update_reference(table, ssum, u, rows_g,
+                                                      K3_LR, K3_EPS),
+            None),
+        "sgd": (
+            lambda u: ru.sgd_row_update(table, u, rows_g, K3_LR),
+            lambda u: ru.sgd_row_update_reference(table, u, rows_g, K3_LR),
+            lambda u: table.index_add_(0, u, rows_g, alpha=-K3_LR)),
+    }
+    for optimizer, (kernel, plain, library) in times.items():
+        moved = 4.0 * ((5 if optimizer == "adagrad" else 3) * R * D) + 8.0 * R
+        flops = (7 if optimizer == "adagrad" else 2) * R * D
+        bound_ms = max(moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3
+        ms = cuda_ms(cycling(kernel), reps=200)
+        plain_ms = cuda_ms(cycling(plain), reps=100)
+        library_ms = (cuda_ms(cycling(library), reps=200)
+                      if library is not None else None)
+        device_ms = kernel_device_ms(cycling(kernel), 200, f"{optimizer}_rows")
+        print(f"row_update {optimizer} wikidata5m entity shape (R={R}, "
+              f"D={D}, V={V}): kernel_ms {ms} (device time of the kernel "
+              f"alone {device_ms}) plain_ms {plain_ms} library_ms "
+              f"{library_ms} bound_ms {bound_ms} (bytes; {moved / 1e6} MB)",
+              flush=True)
+        out[optimizer].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by="bytes", library_ms=library_ms)
+    del main, table, ssum, rows_g, id_sets
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- train
 
 
@@ -549,7 +792,32 @@ def copy_run(source: str, target: str, checkpoint: str):
         shutil.copy(os.path.join(source, name), target)
 
 
-def train_phase(rc, nl, seed, scratch, dataset_folder) -> dict:
+def fresh_device_memory() -> int:
+    """Free what earlier runs left (a finished job is kept alive by the
+    reference cycles of its hooks until the collector runs), restart the
+    peak counter, and return the device bytes still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def reset_counts(kernels):
+    for wrapper in kernels:
+        wrapper.launches = 0
+
+
+def counts(kernels) -> dict:
+    return {wrapper.__name__: wrapper.launches for wrapper in kernels}
+
+
+def expect_counts(label: str, got: dict, want: dict):
+    for name, n in want.items():
+        if got[name] != n:
+            fail(f"{label} launched {name} {got[name]} times, expected {n}")
+
+
+def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
     from kge_tpu_torch import cli
 
     n_train = FB15K237["splits"]["train"]
@@ -557,14 +825,17 @@ def train_phase(rc, nl, seed, scratch, dataset_folder) -> dict:
     write_train_config(config_file, dataset_folder, seed)
     run = os.path.join(scratch, "train-run")
 
-    # the main path: start, 2 epochs, a validation after each
-    rc.rank_counts.launches = 0
-    nl.shared_ce_loss.launches = 0
+    # the main path: start, 2 epochs, a validation after each; at this
+    # size tpu.sparse_updates auto keeps the tables dense (no K3)
+    reset_counts(kernels)
     t0 = time.perf_counter()
     cli.main(["start", config_file, "--folder", run])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1, k2 = nl.shared_ce_loss.launches, rc.rank_counts.launches
+    launched = counts(kernels)
+    k1, k2 = launched["shared_ce_loss"], launched["rank_counts"]
+    expect_counts("the FB15k-237-size training", launched,
+                  dict(adagrad_row_update=0, sgd_row_update=0))
     copy_run(run, os.path.join(scratch, "epoch1-cuda"), "checkpoint_00000.pt")
     copy_run(run, os.path.join(scratch, "epoch1-cpu"), "checkpoint_00000.pt")
 
@@ -600,7 +871,7 @@ def train_phase(rc, nl, seed, scratch, dataset_folder) -> dict:
         fail("validation after each epoch missing or out of range")
 
     # resume to epoch 3
-    nl.shared_ce_loss.launches = 0
+    reset_counts(kernels)
     resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
     torch.cuda.synchronize()
     print(f"train resume on the card: epoch {resumed['epoch']} avg_loss "
@@ -608,9 +879,8 @@ def train_phase(rc, nl, seed, scratch, dataset_folder) -> dict:
           flush=True)
     if resumed["epoch"] != 3 or not math.isfinite(resumed["avg_loss"]):
         fail(f"resume did not reach a finite epoch 3: {resumed}")
-    if nl.shared_ce_loss.launches != 2 * TRAIN_STEPS:
-        fail(f"the resumed epoch launched shared_ce_loss "
-             f"{nl.shared_ce_loss.launches} times")
+    expect_counts("the resumed epoch", counts(kernels),
+                  dict(shared_ce_loss=2 * TRAIN_STEPS))
 
     # card vs host: epoch 1 again from the same initial weights
     runs = {}
@@ -650,8 +920,242 @@ def train_phase(rc, nl, seed, scratch, dataset_folder) -> dict:
     folder = os.path.join(scratch, "profiled")
     copy_run(run, folder, "checkpoint_00003.pt")
     profile_run("train", "train.", lambda: cli.main([
-        "resume", folder, "--train.max_epochs", "4", "--valid.every", "0"]))
-    return dict(k1_launches=k1)
+        "resume", folder, "--train.max_epochs", "4", "--valid.every", "0"]),
+        epoch_only=True)
+    return dict(k1_launches=k1, config_file=config_file)
+
+
+def first_batch_loss(folder: str) -> float:
+    return read_trace(folder, scope="batch")[0]["avg_loss"]
+
+
+def relative(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def sgd_phase(kernels, scratch, config_file) -> dict:
+    """K3's SGD half on its path: one epoch of plain SGD with row-sparse
+    updates on the FB15k-237-size graph (tpu.sparse_updates always), held
+    against the same epoch with dense SGD; both on the card, from the
+    same seeded initial weights."""
+    from kge_tpu_torch import cli
+
+    runs = {}
+    for mode in ("always", "never"):
+        folder = os.path.join(scratch, f"sgd-{mode}")
+        reset_counts(kernels)
+        entry = cli.main([
+            "start", config_file, "--folder", folder, "--train.max_epochs",
+            "1", "--valid.every", "0", "--train.trace_level", "batch",
+            "--train.optimizer.default.type", "SGD",
+            "--tpu.sparse_updates", mode])
+        torch.cuda.synchronize()
+        runs[mode] = dict(first_batch_loss=first_batch_loss(folder),
+                          avg_loss=entry["avg_loss"],
+                          epoch_seconds=entry["epoch_time"],
+                          launches=counts(kernels))
+        shutil.rmtree(folder)
+    sparse, dense = runs["always"], runs["never"]
+    first_rel = relative(sparse["first_batch_loss"],
+                         dense["first_batch_loss"])
+    epoch_rel = relative(sparse["avg_loss"], dense["avg_loss"])
+    print("train sgd sparse vs dense on the card: " + json.dumps(dict(
+        sparse=sparse, dense=dense, first_batch_relative_difference=first_rel,
+        epoch_avg_loss_relative_difference=epoch_rel)), flush=True)
+    expect_counts("the row-sparse SGD epoch", sparse["launches"],
+                  dict(sgd_row_update=2 * TRAIN_STEPS, adagrad_row_update=0,
+                       shared_ce_loss=2 * TRAIN_STEPS))
+    expect_counts("the dense SGD epoch", dense["launches"],
+                  dict(sgd_row_update=0, adagrad_row_update=0))
+    if not math.isfinite(sparse["avg_loss"]):
+        fail(f"the SGD epoch's loss is not finite: {sparse['avg_loss']}")
+    if first_rel > 1e-6 or epoch_rel > 1e-5:
+        fail("row-sparse and dense SGD disagree: first batch "
+             f"{first_rel}, epoch {epoch_rel}")
+    return dict(launches=sparse["launches"]["sgd_row_update"])
+
+
+# ----------------------------------------------------------------- wikidata5m
+
+
+def w5m_phase(kernels, seed, scratch) -> dict:
+    """The slice's path: ``start`` of examples/wikidata5m-complex-train.yaml
+    as it is (tpu.sparse_updates auto) on a synthetic graph with
+    Wikidata5M's sizes for one epoch, then ``valid``; K3 must update both
+    tables every step. From the same checkpoint_00000.pt, one epoch each
+    row-sparse on the card under the profiler, dense on the card, and
+    row-sparse on the host (plain K1 and K3), compared. Each run folder
+    goes as soon as it has been read: two checkpoints of 4.9 GB at most
+    are on disk at once."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.train.train import TrainingJob
+
+    n_train = WIKIDATA5M["splits"]["train"]
+    t0 = time.perf_counter()
+    dataset_folder = os.path.join(scratch, "wikidata5m-synthetic")
+    write_dataset(dataset_folder, seed, WIKIDATA5M)
+    dataset_seconds = time.perf_counter() - t0
+
+    saves = []  # seconds of each checkpoint save (host copy + pickle)
+    save = TrainingJob._save
+
+    def timed_save(job, filename):
+        t = time.perf_counter()
+        save(job, filename)
+        saves.append(time.perf_counter() - t)
+
+    TrainingJob._save = timed_save
+    try:
+        run = os.path.join(scratch, "w5m-run")
+        common = ["--dataset.name", dataset_folder, "--random_seed.default",
+                  str(seed), "--console.quiet", "true"]
+        reset_counts(kernels)
+        start_base = fresh_device_memory()
+        t0 = time.perf_counter()
+        cli.main(["start", os.path.join(REPO, W5M_RECIPE), "--folder", run,
+                  "--train.max_epochs", "1", *common])
+        torch.cuda.synchronize()
+        start_seconds = time.perf_counter() - t0
+        start_counts = counts(kernels)
+        start_peak = torch.cuda.max_memory_allocated()
+        start_saves = list(saves)
+        with open(os.path.join(run, "kge.log")) as f:
+            sparse_logged = "Using row-sparse embedding updates." in f.read()
+        (epoch,) = read_trace(run, event="epoch_completed", job="train")
+
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        valid = cli.main(["valid", run])
+        torch.cuda.synchronize()
+        valid_seconds = time.perf_counter() - t0
+        valid_counts = counts(kernels)
+
+        steps = epoch["batches"]
+        setup = start_seconds - epoch["epoch_time"] - sum(start_saves)
+        print("train wikidata5m start on the card: " + json.dumps(dict(
+            epoch=epoch["epoch"], avg_loss=epoch["avg_loss"], batches=steps,
+            epoch_seconds=epoch["epoch_time"],
+            ms_per_step=1e3 * epoch["epoch_time"] / steps,
+            triples_per_s=n_train / epoch["epoch_time"],
+            seconds_cli=start_seconds,
+            dataset_write_seconds=dataset_seconds,
+            setup_seconds=setup, checkpoint_save_seconds=start_saves,
+            peak_device_memory_bytes=start_peak,
+            device_memory_before_bytes=start_base, launches=start_counts,
+            valid_seconds_cli=valid_seconds,
+            valid_epoch_seconds=valid["epoch_time"],
+            valid_launches=valid_counts,
+            valid_mrr_filtered=valid["mean_reciprocal_rank_filtered"],
+        )), flush=True)
+        if not sparse_logged:
+            fail("the Wikidata5M-size run did not use row-sparse updates")
+        expect_counts("the Wikidata5M-size epoch", start_counts, dict(
+            adagrad_row_update=2 * W5M_STEPS, sgd_row_update=0,
+            shared_ce_loss=2 * W5M_STEPS, rank_counts=0))
+        expect_counts("the Wikidata5M-size validation", valid_counts, dict(
+            rank_counts=2 * math.ceil(WIKIDATA5M["splits"]["valid"]
+                                      / VALID_BATCH)))
+        if steps != W5M_STEPS or not math.isfinite(epoch["avg_loss"]):
+            fail(f"the Wikidata5M-size epoch: {epoch}")
+        if not 0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0:
+            fail("the Wikidata5M-size validation MRR is out of range")
+
+        # the same epoch from checkpoint_00000.pt: sparse on the card
+        # (profiled), dense on the card, sparse on the host
+        variants = {
+            "sparse-card": [],
+            "dense-card": ["--tpu.sparse_updates", "never"],
+            "sparse-host": ["--job.device", "cpu"],
+        }
+        # one copy of checkpoint_00000.pt moves from run to run: a run
+        # resumed at epoch 0 writes it anew (the same weights and state)
+        # before its epoch-1 checkpoint, so two are on disk at most
+        init = os.path.join(scratch, "w5m-checkpoint_00000.pt")
+        config_yaml = os.path.join(scratch, "w5m-config.yaml")
+        os.replace(os.path.join(run, "checkpoint_00000.pt"), init)
+        shutil.copy(os.path.join(run, "config.yaml"), config_yaml)
+        shutil.rmtree(run)
+        runs = {}
+        for name, flags in variants.items():
+            folder = os.path.join(scratch, f"w5m-{name}")
+            os.makedirs(folder)
+            shutil.copy(config_yaml, os.path.join(folder, "config.yaml"))
+            os.replace(init, os.path.join(folder, "checkpoint_00000.pt"))
+            argv = ["resume", folder, "--train.max_epochs", "1",
+                    "--valid.every", "0", "--train.trace_level", "batch",
+                    "--tpu.fused_negsamp_loss", "always", *flags]
+            reset_counts(kernels)
+            base = fresh_device_memory()
+            del saves[:]
+            t0 = time.perf_counter()
+            device = None
+            if name == "sparse-card":
+                entry, device = profile_run(
+                    "train wikidata5m sparse", "train.",
+                    lambda: cli.main(argv), epoch_only=True)
+            else:
+                entry = cli.main(argv)
+            torch.cuda.synchronize()
+            with open(os.path.join(folder, "kge.log")) as f:
+                log = f.read()
+            runs[name] = dict(
+                first_batch_loss=first_batch_loss(folder),
+                avg_loss=entry["avg_loss"], epoch_seconds=entry["epoch_time"],
+                ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
+                triples_per_s=n_train / entry["epoch_time"],
+                seconds_cli=time.perf_counter() - t0,
+                checkpoint_save_seconds=list(saves),
+                peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
+                device_memory_before_bytes=base,
+                sparse="Using row-sparse embedding updates." in log,
+                launches=counts(kernels))
+            if device is not None:
+                k3_ms = sum(ms for kernel, (ms, _) in device.items()
+                            if "adagrad_rows" in kernel)
+                device_ms = sum(ms for ms, _ in device.values())
+                runs[name].update(
+                    profiled=True, device_busy_ms=device_ms,
+                    k3_device_ms=k3_ms,
+                    k3_share_of_device_time=k3_ms / max(device_ms, 1e-9))
+            os.replace(os.path.join(folder, "checkpoint_00000.pt"), init)
+            shutil.rmtree(folder)
+            print(f"train wikidata5m {name}: " + json.dumps(runs[name]),
+                  flush=True)
+    finally:
+        TrainingJob._save = save
+    os.remove(init)
+    shutil.rmtree(dataset_folder)
+
+    card, dense, host = (runs[k] for k in
+                         ("sparse-card", "dense-card", "sparse-host"))
+    expect_counts("the profiled sparse epoch", card["launches"],
+                  dict(adagrad_row_update=2 * W5M_STEPS))
+    expect_counts("the dense epoch", dense["launches"],
+                  dict(adagrad_row_update=0, shared_ce_loss=2 * W5M_STEPS))
+    expect_counts("the host epoch", host["launches"],
+                  dict(adagrad_row_update=0, shared_ce_loss=0))
+    if not (card["sparse"] and host["sparse"]) or dense["sparse"]:
+        fail("sparse-card and sparse-host must update rows sparsely, "
+             "dense-card densely")
+    compared = {}
+    for name, other in (("dense-card", dense), ("sparse-host", host)):
+        first_rel = relative(other["first_batch_loss"],
+                             card["first_batch_loss"])
+        epoch_rel = relative(other["avg_loss"], card["avg_loss"])
+        compared[name] = dict(first_batch_relative_difference=first_rel,
+                              epoch_avg_loss_relative_difference=epoch_rel)
+        # the epoch: Adagrad's sign trap (its first update of an element
+        # is about lr * sign(g)), as for the FB15k-237-size comparison
+        if first_rel > 1e-5 or epoch_rel > 1e-3:
+            fail(f"the Wikidata5M-size epoch, {name} vs sparse-card: first "
+                 f"batch {first_rel}, epoch {epoch_rel}")
+    print("train wikidata5m sparse-card vs: " + json.dumps(dict(
+        compared, sparse_card_ms_per_step=card["ms_per_step"],
+        start_ms_per_step=1e3 * epoch["epoch_time"] / steps,
+        dense_card_ms_per_step=dense["ms_per_step"],
+        dense_over_sparse=dense["ms_per_step"]
+        / (1e3 * epoch["epoch_time"] / steps))), flush=True)
+    return dict(launches=start_counts["adagrad_row_update"])
 
 
 def main():
@@ -667,6 +1171,7 @@ def main():
     from kge_tpu_torch.ops import native
     from kge_tpu_torch.ops import negsamp_loss as nl
     from kge_tpu_torch.ops import rank_count as rc
+    from kge_tpu_torch.ops import row_update as ru
 
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -693,14 +1198,19 @@ def main():
                 line.strip() for line in log.read_text().splitlines()
                 if "registers" in line or "spill" in line), flush=True)
 
+    kernels = (rc.rank_counts, nl.shared_ce_loss, ru.adagrad_row_update,
+               ru.sgd_row_update)
     k2 = kernel_phase(rc, args.seed, device)
     k1 = k1_phase(nl, args.seed, device)
+    k3 = k3_phase(ru, args.seed, device)
     os.makedirs(os.path.join(REPO, "local"), exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke-",
                                dir=os.path.join(REPO, "local"))
     try:
-        ev = eval_phase(rc, args.seed, device, scratch)
-        tr = train_phase(rc, nl, args.seed, scratch, ev["dataset_folder"])
+        ev = eval_phase(rc, kernels, args.seed, device, scratch)
+        tr = train_phase(kernels, args.seed, scratch, ev["dataset_folder"])
+        sgd = sgd_phase(kernels, scratch, tr["config_file"])
+        w5m = w5m_phase(kernels, args.seed, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -718,7 +1228,14 @@ def main():
         launches=tr["k1_launches"], max_abs_err=k1["max_abs_err"],
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
-    )]}), flush=True)
+    )] + [dict(
+        name=f"row_update_{optimizer}", route="cuda",
+        source="kge_tpu_torch/csrc/row_update.cu",
+        replaces=f"kge_tpu/ops/pallas/row_update.py:{line}",
+        launches=launches, **k3[optimizer],
+    ) for optimizer, line, launches in (
+        ("adagrad", 60, w5m["launches"]), ("sgd", 78, sgd["launches"]))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -37,12 +37,20 @@ S, P, O = 0, 1, 2
 class Ctx:
     """Per-call context: mode and non-trainable state. A
     default-constructed Ctx is eval mode; ``Ctx(train=True)`` is training
-    mode, where dropout is not yet ported."""
+    mode, where dropout is not yet ported.
+
+    ``tables`` substitutes embedding tables for one call, by embedder name
+    (``"entity_embedder"``, ``"relation_embedder"``): a row-sparse training
+    step passes the rows it gathered, and indexes that point into them
+    (the counterpart of ``kge_tpu``'s loss over a params tree whose
+    ``weights`` are the gathered rows)."""
 
     def __init__(self, train: bool = False,
-                 state: Optional[Dict[str, Any]] = None):
+                 state: Optional[Dict[str, Any]] = None,
+                 tables: Optional[Mapping[str, torch.Tensor]] = None):
         self.train = train
         self.state = state if state is not None else {}
+        self.tables = dict(tables or {})
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if not self.train or rate <= 0.0:

@@ -37,6 +37,9 @@ class LookupEmbedder(KgeEmbedder):
             model_axis = 1
         align = model_axis * 8 // math.gcd(model_axis, 8)
         self.padded_vocab_size = -(-self.vocab_size // align) * align
+        #: the key of this table in ``Ctx.tables`` (its attribute name in
+        #: the model: ``entity_embedder``, ``relation_embedder``)
+        self.table_key = configuration_key.rsplit(".", 1)[-1]
         self.dropout_rate: float = self.get_option("dropout")
         if self.dropout_rate < 0:
             if config.get("train.auto_correct"):
@@ -90,18 +93,27 @@ class LookupEmbedder(KgeEmbedder):
         if indexes is None:
             raise ValueError("weighted regularization needs batch indexes")
         idx = indexes.reshape(-1)
-        rows = torch.index_select(self.weights, 0, idx)
+        rows = torch.index_select(self._table(ctx), 0, idx)
         value = weight / p * torch.sum(rows.abs() ** p) / idx.shape[0]
         return [(name, value)]
 
     # ------------------------------------------------------------------ embed
 
+    def _table(self, ctx: Ctx) -> torch.Tensor:
+        """The table to read: ``self.weights``, or the rows ``ctx``
+        substitutes for it in a row-sparse step."""
+        return ctx.tables.get(self.table_key, self.weights)
+
     def embed(self, indexes: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        emb = embedding_lookup(self.weights, indexes)
+        emb = embedding_lookup(self._table(ctx), indexes)
         return ctx.dropout(emb, self.dropout_rate)
 
     def embed_all(self, ctx: Ctx, padded: bool = False) -> torch.Tensor:
         """All embeddings: a view of the table's first ``vocab_size`` rows
         (with ``padded``, the whole padded table)."""
+        if self.table_key in ctx.tables:
+            raise ValueError(
+                f"{self.table_key}: embed_all reads the whole table, which a "
+                "row-sparse step has replaced by its gathered rows")
         rows = self.weights if padded else self.weights[: self.vocab_size]
         return ctx.dropout(rows, self.dropout_rate)

@@ -7,10 +7,15 @@ matches its regex (overlaps are an error); the rest fall into
 ``default``. Each group has its own base learning rate and arguments.
 
 Ported: dense Adagrad with torch semantics, ``sum += g^2; p -= lr * g /
-(sqrt(sum) + eps)``, after ``g += weight_decay * p`` when weight decay is
-set (``optax.add_decayed_weights`` in ``kge_tpu``). The state is one
-plain ``sum`` tensor per parameter, owned by the optimizer. Other
-optimizer types and row-sparse updates raise "not yet ported".
+(sqrt(sum) + eps)``, and dense plain SGD, ``p -= lr * g`` (``optax.identity``
+in ``kge_tpu``), each after ``g += weight_decay * p`` when weight decay is
+set (``optax.add_decayed_weights``). The state is one plain ``sum``
+tensor per parameter for Adagrad and nothing for SGD; the training job
+holds it and passes it in. Parameters named in ``sparse_paths`` (the
+embedding tables of a row-sparse run) are left out of the dense step:
+``sparse_row_update`` updates the rows a batch touched, through the
+row-update kernel (``ops/row_update.py``). SGD momentum and the other
+optimizer types raise "not yet ported".
 
 Checkpoints store the state in ``kge_tpu``'s leaf order (see
 ``opt_state_tree``): ``kge_tpu`` reads ``opt_state`` by position, after
@@ -20,12 +25,13 @@ flattening it the way ``jax.tree_util.tree_leaves`` does.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from kge_tpu_torch.config import Config
+from kge_tpu_torch.ops.row_update import adagrad_row_update, sgd_row_update
 from kge_tpu_torch.utils.params import tree_leaves
 
 
@@ -33,17 +39,58 @@ def _path_key(name: str) -> Tuple[str, ...]:
     return tuple(name.split("."))
 
 
-class KgeOptimizer:
-    """Regex parameter groups and dense Adagrad over named parameters."""
+def _group_args(config: Config) -> List[Dict[str, Any]]:
+    """The ``args`` of every optimizer group, ``default`` first."""
+    args = [dict(config.get("train.optimizer.default.args") or {})]
+    for name in config.get("train.optimizer").keys():
+        if name != "default":
+            args.append(
+                dict(config.get(f"train.optimizer.{name}.args") or {}))
+    return args
 
-    def __init__(self, config: Config, params: Mapping[str, torch.Tensor]):
+
+def sparse_unsupported_reason(config: Config) -> Optional[str]:
+    """Why row-sparse updates cannot replicate this optimizer exactly
+    (None when they can). Torch draws the same line: sparse gradients
+    work with Adagrad/plain SGD only (reference: lookup_embedder.yaml
+    ``sparse`` + torch.optim sparse support)."""
+    opt_type = config.get("train.optimizer.default.type").lower()
+    if opt_type not in ("adagrad", "sgd"):
+        return f"optimizer type {opt_type} has dense per-row state semantics"
+    for args in _group_args(config):
+        if args.get("weight_decay", 0.0):
+            return "weight_decay touches every row each step"
+        if opt_type == "sgd" and args.get("momentum", 0.0):
+            return "SGD momentum decays untouched rows each step"
+    return None
+
+
+class KgeOptimizer:
+    """Regex parameter groups, dense Adagrad or plain SGD over named
+    parameters, and row-sparse updates of the ``sparse_paths`` tables."""
+
+    def __init__(self, config: Config, params: Mapping[str, torch.Tensor],
+                 sparse_paths: Sequence[str] = ()):
         self.config = config
         self.params = dict(params)
+        self.sparse_paths: Tuple[str, ...] = tuple(sparse_paths)
+        if self.sparse_paths:
+            reason = sparse_unsupported_reason(config)
+            if reason is not None:
+                raise ValueError(f"sparse updates unsupported: {reason}")
         opt_type = config.get("train.optimizer.default.type")
-        if opt_type.lower() != "adagrad":
+        self.opt_type = opt_type.lower()
+        if self.opt_type not in ("adagrad", "sgd"):
             raise NotImplementedError(
                 f"train.optimizer type {opt_type} is not yet ported to "
-                "kge_tpu_torch (Adagrad is)"
+                "kge_tpu_torch (Adagrad and SGD are)"
+            )
+        if self.opt_type == "sgd" and any(
+                args.get("momentum", 0.0) or args.get("nesterov", False)
+                for args in _group_args(config)):
+            raise NotImplementedError(
+                "SGD momentum and nesterov are not yet ported to "
+                "kge_tpu_torch (plain SGD is)"
             )
         group_specs: List[Tuple[str, re.Pattern, Dict]] = []
         for name in config.get("train.optimizer").keys():
@@ -88,7 +135,10 @@ class KgeOptimizer:
         return float(self._group_args[self.group_of[name]].get(key, default))
 
     def init(self) -> Dict[str, torch.Tensor]:
-        """The Adagrad accumulators: parameter name -> ``sum`` tensor."""
+        """The Adagrad accumulators: parameter name -> ``sum`` tensor (the
+        sparse tables' included); SGD keeps no state."""
+        if self.opt_type == "sgd":
+            return {}
         return {
             name: torch.full_like(
                 p, self._arg(name, "initial_accumulator_value", 0.0)
@@ -98,34 +148,69 @@ class KgeOptimizer:
 
     @torch.no_grad()
     def step(self, state: Dict[str, torch.Tensor], lrs: Dict[str, float]):
-        """One update, in place, from each parameter's ``.grad`` (a
-        parameter without one counts as a zero gradient)."""
+        """One dense update, in place, of every parameter outside
+        ``sparse_paths`` from its ``.grad`` (a parameter without one
+        counts as a zero gradient)."""
         for name, p in self.params.items():
+            if name in self.sparse_paths:
+                continue
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             weight_decay = self._arg(name, "weight_decay", 0.0)
             if weight_decay:
                 g = g + weight_decay * p
+            lr = lrs[self.group_of[name]]
+            if self.opt_type == "sgd":
+                p.sub_(lr * g)
+                continue
             acc = state[name]
             acc.add_(g * g)
             eps = self._arg(name, "eps", 1e-10)
-            p.sub_(lrs[self.group_of[name]] * (g / (acc.sqrt() + eps)))
+            p.sub_(lr * (g / (acc.sqrt() + eps)))
+
+    @torch.no_grad()
+    def sparse_row_update(self, state: Dict[str, torch.Tensor], name: str,
+                          uniq: torch.Tensor, row_grads: torch.Tensor,
+                          lrs: Dict[str, float]):
+        """The optimizer step on the ``uniq`` rows of the sparse table
+        ``name``, in place, from their gradient rows: one launch of the
+        row-update kernel on a card, its plain version on the host.
+        ``uniq`` is sorted; a run of equal ids carries its gradient at its
+        last position. Exact counterpart of torch sparse Adagrad / plain
+        SGD on sparse gradients."""
+        table = self.params[name]
+        lr = lrs[self.group_of[name]]
+        if self.opt_type == "sgd":
+            sgd_row_update(table, uniq, row_grads, lr)
+        else:
+            adagrad_row_update(table, state[name], uniq, row_grads, lr,
+                               self._arg(name, "eps", 1e-10))
 
     # ------------------------------------------------------------------ state
 
     def opt_state_tree(self, state: Mapping[str, Any]) -> Dict[str, Any]:
         """``state`` in a tree of plain dicts whose leaves, flattened by
         ``tree_leaves`` (JAX's order), line up with those of ``kge_tpu``'s
-        ``KgeOptimizer.init(params)``: ``{group: {"sum": {path...}}}``.
-        Groups sort by name, parameters by path; optax's empty states and
-        masked-out parameters give no leaves there."""
-        tree: Dict[str, Any] = {g: {"sum": {}} for g in self.group_names}
+        ``KgeOptimizer.init(params)``: ``{group: {"sum": {path...}}}``, and
+        in a row-sparse run ``{"sparse": {path: {"sum": ...}}, "tx":
+        {group: {"sum": {path...}}}}`` with the sparse tables under
+        ``"sparse"`` only. Groups sort by name, parameters by path; optax's
+        empty states, masked-out parameters and SGD give no leaves."""
+        dense: Dict[str, Any] = {g: {"sum": {}} for g in self.group_names}
+        sparse: Dict[str, Any] = {path: {} for path in self.sparse_paths}
         for name in sorted(self.params, key=_path_key):
-            node = tree[self.group_of[name]]["sum"]
+            if name not in state:
+                continue
+            if name in self.sparse_paths:
+                sparse[name]["sum"] = state[name]
+                continue
+            node = dense[self.group_of[name]]["sum"]
             *parents, leaf = name.split(".")
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = state[name]
-        return tree
+        if self.sparse_paths:
+            return {"sparse": sparse, "tx": dense}
+        return dense
 
     def state_to_checkpoint(self, state: Dict[str, torch.Tensor]
                             ) -> Dict[str, Any]:
@@ -134,8 +219,9 @@ class KgeOptimizer:
         )
 
     def load_state(self, state: Dict[str, torch.Tensor], opt_state: Any):
-        """Copy a checkpoint's ``opt_state`` (written by either package)
-        into ``state``, leaf by leaf in JAX's order."""
+        """Copy a checkpoint's ``opt_state`` (written by either package,
+        by a dense or a row-sparse run) into ``state``, leaf by leaf in
+        JAX's order."""
         names = tree_leaves(self.opt_state_tree({n: n for n in state}))
         leaves = tree_leaves(opt_state)
         if len(leaves) != len(names):

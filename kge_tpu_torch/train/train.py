@@ -5,8 +5,11 @@ The epoch loop, validation, early stopping, learning-rate control and
 checkpoint rotation follow ``kge_tpu``. The step is plain PyTorch on one
 device: the subbatch losses (each divided by the true batch size) and
 their backward passes, the penalty and its backward, then the optimizer
-and the parameter constraints. As in ``kge_tpu``, every batch is padded
-to ``train.batch_size`` with zero-weight rows.
+and the parameter constraints. In a row-sparse run
+(``_sparse_table_paths``) the loss reads the rows the strategy gathered
+(``_step_context``) and the optimizer updates only those rows of the
+tables. As in ``kge_tpu``, every batch is padded to
+``train.batch_size`` with zero-weight rows.
 
 The epoch keeps the device queue full: batches go up through pinned
 memory without waiting, per-step metrics stay device tensors, and they
@@ -100,13 +103,18 @@ class TrainingJob(TrainingOrEvaluationJob):
                                     generator=self.generator)
         self.model = model
         self.model.normalize_params()
-        for p in self.model.parameters():
-            p.requires_grad_(not forward_only)
         self.loss = KgeLoss.create(config)
         self.batch_size: int = config.get("train.batch_size")
         self.subbatch_size: int = config.get("train.subbatch_size")
         self.train_split: str = config.get("train.split")
         self.is_forward_only = forward_only
+        #: tables updated row-sparsely (``_sparse_table_paths``): autograd
+        #: never sees them, only the rows a step gathers from them
+        self._sparse_paths = () if forward_only else tuple(
+            self._sparse_table_paths())
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(not forward_only
+                             and name not in self._sparse_paths)
         self.epoch = 0
         self.valid_trace: List[Dict[str, Any]] = []
         self.abort_on_nan: bool = config.get("train.abort_on_nan")
@@ -120,8 +128,9 @@ class TrainingJob(TrainingOrEvaluationJob):
             dtype=torch.int64,
         ).cpu().numpy().astype(np.uint32)
 
-        self.optimizer = KgeOptimizer(config,
-                                      dict(self.model.named_parameters()))
+        self.optimizer = KgeOptimizer(
+            config, dict(self.model.named_parameters()),
+            sparse_paths=self._sparse_paths)
         self.opt_state = None if forward_only else self.optimizer.init()
         self.lr_scheduler = KgeLRScheduler(config)
         np_seed = rng_seed_from_config(config, "numpy")
@@ -162,6 +171,18 @@ class TrainingJob(TrainingOrEvaluationJob):
         )
 
     # ------------------------------------------------------------------ strategy API
+
+    def _sparse_table_paths(self):
+        """Dotted parameter names of the embedding tables whose updates
+        are row-sparse in this strategy (overridden by negative sampling);
+        () keeps the fully dense optimizer path."""
+        return ()
+
+    def _step_context(self, batch: Dict[str, Any]):
+        """The step's ``Ctx`` and its gathered rows ``{table name: (uniq,
+        rows)}`` (none here; negative sampling gathers them in a
+        row-sparse run)."""
+        return Ctx(train=True), {}
 
     def _prepare(self):
         """Subclasses set self.num_examples and any precomputed indexes."""
@@ -212,10 +233,12 @@ class TrainingJob(TrainingOrEvaluationJob):
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
+        with record_function("train.forward"):
+            ctx, rows = self._step_context(batch)
         total_loss = 0.0
         for sl in slices:
             with record_function("train.forward"):
-                value = self._subbatch_loss(Ctx(train=True), batch, sl)
+                value = self._subbatch_loss(ctx, batch, sl)
             if isinstance(value, torch.Tensor):
                 if value.requires_grad:
                     with record_function("train.backward"):
@@ -225,7 +248,7 @@ class TrainingJob(TrainingOrEvaluationJob):
 
         with record_function("train.forward"):
             terms = self.model.penalties(
-                Ctx(train=True), batch=self._penalty_batch(batch)
+                ctx, batch=self._penalty_batch(batch)
             )
             penalty_total = 0.0
             for _, v in terms:
@@ -236,6 +259,9 @@ class TrainingJob(TrainingOrEvaluationJob):
             penalty_total = penalty_total.detach()
         with record_function("train.optimizer"):
             self.optimizer.step(self.opt_state, lrs)
+            for name, (uniq, gathered) in rows.items():
+                self.optimizer.sparse_row_update(
+                    self.opt_state, name, uniq, gathered.grad, lrs)
             self.model.normalize_params()
         return {
             "avg_loss": total_loss,

@@ -16,28 +16,50 @@ count-weighted logsumexp and the loss of a slot in one call of
 card. The batch then ships the count factors of its shared sample, which
 expand to per-row multiplicities on the device.
 
+Row-sparse updates (``tpu.sparse_updates``, ``kge_tpu``'s rules): each
+host batch also ships the sorted ids of the entity and relation rows it
+touches, its indexes remapped into them. The step gathers those rows,
+computes the loss and penalty over them through a ``Ctx`` that
+substitutes them for the tables, and the optimizer updates only them, in
+place (``KgeOptimizer.sparse_row_update``; the row-update kernel on a
+card). No [V, D] gradient exists in such a step.
+
 Not yet ported (they raise): the ``triple`` and ``all`` implementations,
-graph sampling, ``tpu.sparse_updates: always`` (row-sparse updates) and
-``tpu.on_device_sampling: always``. Under ``auto`` the port samples on
-the host, and where ``kge_tpu`` would update rows sparsely it updates
-the tables densely: those rules admit only runs whose every update is
-row-local, so dense Adagrad gives the same numbers.
+graph sampling and ``tpu.on_device_sampling: always``; under ``auto``
+the port samples on the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from kge_tpu_torch.models import Ctx
+from kge_tpu_torch.models import Ctx, KgeModel
+from kge_tpu_torch.models.embedder.lookup import LookupEmbedder
 from kge_tpu_torch.ops.gather import row_gather
 from kge_tpu_torch.ops.negsamp_loss import expand_counts, shared_ce_loss
 from kge_tpu_torch.train.job import Job
+from kge_tpu_torch.train.optimizer import sparse_unsupported_reason
 from kge_tpu_torch.train.sampler import SLOT_STR, SLOTS, KgeSampler, S, P, O
 from kge_tpu_torch.train.train import TrainingJob
 from kge_tpu_torch.utils.seed import rng_seed_from_config
+
+
+#: the tables a row-sparse run updates row by row
+SPARSE_TABLES = ("entity_embedder.weights", "relation_embedder.weights")
+
+#: ``kge_tpu``'s TPU-runtime forms of the row-sparse step and their
+#: defaults; none changes a number, and the port has one form
+_TPU_SPARSE_OPTIONS = {
+    "tpu.sparse_table_chunks": "auto",
+    "tpu.sparse_scatter_limit_bytes": "1073741824",
+    "tpu.sparse_split_phases": "auto",
+    "tpu.sparse_pipelined_gather": "auto",
+    "tpu.sparse_group_rowset": "auto",
+    "tpu.sparse_row_kernel": "auto",
+}
 
 
 class TrainingJobNegativeSampling(TrainingJob):
@@ -50,83 +72,132 @@ class TrainingJobNegativeSampling(TrainingJob):
         if np_seed >= 0:
             self._sampler.seed(np_seed + 1)
         self.type_str = "negative_sampling"
-        if not forward_only:
-            self._resolve_sparse_updates()
         if self.__class__ == TrainingJobNegativeSampling:
             for f in Job.job_created_hooks:
                 f(self)
 
-    # ------------------------------------------------------------------ options
+    # ------------------------------------------------------------------ sparse updates
 
-    def _resolve_sparse_updates(self):
-        """``tpu.sparse_updates``: ``always`` raises (not yet ported);
-        under ``auto``, where ``kge_tpu`` would turn row-sparse updates on
-        (``_sparse_table_paths`` there), log that the port updates
-        densely."""
+    def _sparse_table_paths(self):
+        """Row-sparse embedding updates (``tpu.sparse_updates``; the
+        counterpart of the torch sparse-Adagrad path behind
+        ``lookup_embedder.sparse``): every index a negative-sampling step
+        scores is known up front, so the step gathers those rows, takes
+        the gradient of the loss over them, and updates only them and
+        their optimizer state. ``kge_tpu``'s rules: ``auto`` turns it on
+        where it gives the dense numbers and the entity table is at least
+        32 times the rows a batch touches; ``always`` raises where it does
+        not apply. (``kge_tpu``'s rules for reciprocal and graph models
+        have no counterpart here: the port has neither.)"""
         config = self.config
+        # canonical values are YAML-safe (unquoted on/off parse as YAML
+        # booleans); accept legacy aliases
+        raw = config.get("tpu.sparse_updates")
         aliases = {True: "always", False: "never", "on": "always",
                    "off": "never"}
-        raw = config.get("tpu.sparse_updates")
         if raw in aliases:
             config.set("tpu.sparse_updates", aliases[raw], log=True)
         mode = config.check("tpu.sparse_updates", ["auto", "always", "never"])
-        if mode == "always":
-            raise NotImplementedError(
-                "tpu.sparse_updates always (row-sparse updates) is not yet "
-                "ported to kge_tpu_torch"
-            )
-        if mode == "auto" and not self._sparse_unsupported_reasons():
-            config.log(
-                "Row-sparse updates are not yet ported to kge_tpu_torch; "
-                "updating the tables densely (the same numbers)."
-            )
-
-    def _sparse_unsupported_reasons(self) -> List[str]:
-        """Why ``kge_tpu`` would keep dense updates here (its rules for
-        the models the port has)."""
-        config = self.config
+        for key, default in _TPU_SPARSE_OPTIONS.items():
+            if str(config.get(key)) != default:
+                config.log(
+                    f"{key} is ignored: kge_tpu_torch updates each table as "
+                    "one tensor in place (the row-update kernel on a card, "
+                    "its plain version on the host); kge_tpu gives the same "
+                    "numbers with any setting")
+        if mode == "never":
+            return ()
+        m = self.model
         reasons = []
-        opt_type = config.get("train.optimizer.default.type").lower()
-        if opt_type not in ("adagrad", "sgd"):
-            reasons.append(f"optimizer type {opt_type}")
-        for name in config.get("train.optimizer").keys():
-            args = dict(config.get(f"train.optimizer.{name}.args") or {})
-            if args.get("weight_decay", 0.0):
-                reasons.append("weight_decay")
-            if opt_type == "sgd" and args.get("momentum", 0.0):
-                reasons.append("SGD momentum")
+        r = sparse_unsupported_reason(config)
+        if r:
+            reasons.append(r)
         if config.get("train.subbatch_size") > 0:
-            reasons.append("subbatch gradient accumulation")
+            reasons.append("subbatch gradient accumulation is enabled")
         if config.get("negative_sampling.implementation") == "all":
-            reasons.append("implementation 'all'")
-        for emb in (self.model.get_s_embedder(), self.model.get_p_embedder()):
+            reasons.append("implementation 'all' scores every entity")
+        if type(m).penalties is not KgeModel.penalties:
+            reasons.append(f"{type(m).__name__} defines whole-table penalties")
+        if type(m).normalize_params is not KgeModel.normalize_params:
+            reasons.append(f"{type(m).__name__} renormalizes full tables")
+        for name, emb in (("entity", m.get_s_embedder()),
+                          ("relation", m.get_p_embedder())):
+            if type(emb) is not LookupEmbedder:
+                reasons.append(f"{name} embedder is not a plain lookup table")
+                continue
             if emb.normalize_p > 0:
-                reasons.append("Lp-normalized table")
+                reasons.append(f"{name} embedder Lp-normalizes its table")
             if (emb.regularize
                     and emb.get_option("regularize_weight") != 0.0
                     and not emb.get_option("regularize_args.weighted")):
-                reasons.append("unweighted regularization")
-        if not reasons:
+                reasons.append(f"{name} embedder has unweighted regularization")
+        if not reasons and mode == "auto":
+            # dense table updates cost O(V) per step, the sparse machinery
+            # O(touched rows) plus constant overhead (unique, searchsorted,
+            # scatter); only auto-enable with clear headroom
             ent_rows, _ = self._touched_row_counts()
             if self.dataset.num_entities() < 32 * ent_rows:
-                reasons.append("entity vocabulary too small")
-        return reasons
+                reasons.append(
+                    "entity vocabulary too small for sparse updates to pay "
+                    f"({self.dataset.num_entities()} rows vs ~{ent_rows} "
+                    "touched per batch)"
+                )
+        if reasons:
+            if mode == "always":
+                raise ValueError(
+                    "tpu.sparse_updates=always is not applicable here: "
+                    + "; ".join(reasons)
+                )
+            config.log(
+                "Row-sparse updates not applicable: " + "; ".join(reasons))
+            return ()
+        config.log("Using row-sparse embedding updates.")
+        return SPARSE_TABLES
 
     def _touched_row_counts(self):
         """Static (entity, relation) bounds on rows touched per batch."""
-        batch_size = self.batch_size
-        shared = self._sampler.shared
+        config = self.config
+        batch_size = config.get("train.batch_size")
+        shared = config.get("negative_sampling.shared")
         ent_rows, rel_rows = 2 * batch_size, batch_size
-        for slot in SLOTS:
-            n = int(self._sampler.num_samples[slot])
+        nums = {
+            key: config.get(f"negative_sampling.num_samples.{key}")
+            for key in ("s", "p", "o")
+        }
+        # mirror the sampler's auto-complete exactly (sampler.py: S copies
+        # O's original value, then O copies S's resolved value; P -> 0)
+        orig_o = nums["o"]
+        if nums["s"] < 0:
+            nums["s"] = orig_o if orig_o > 0 else 0
+        if nums["o"] < 0:
+            nums["o"] = nums["s"] if nums["s"] > 0 else 0
+        if nums["p"] < 0:
+            nums["p"] = 0
+        for key, n in nums.items():
             if n <= 0:
                 continue
             extra = n + 1 if shared else batch_size * n
-            if slot == P:
+            if key == "p":
                 rel_rows += extra
             else:
                 ent_rows += extra
         return ent_rows, rel_rows
+
+    def _step_context(self, batch):
+        """In a row-sparse run: gather the rows the batch touches (its
+        ``uniq_e`` and ``uniq_r``) as leaves of their own, and a ``Ctx``
+        that substitutes them for the tables; the batch's indexes already
+        point into them (``_add_row_index_payload``)."""
+        if not self._sparse_paths:
+            return super()._step_context(batch)
+        rows, tables = {}, {}
+        for path, key in zip(SPARSE_TABLES, ("uniq_e", "uniq_r")):
+            uniq = batch[key]
+            table = self.model.get_parameter(path)
+            gathered = table.detach().index_select(0, uniq).requires_grad_()
+            rows[path] = (uniq, gathered)
+            tables[path.split(".")[0]] = gathered
+        return Ctx(train=True, tables=tables), rows
 
     def _prepare(self):
         self._implementation = self.config.check(
@@ -251,7 +322,77 @@ class TrainingJobNegativeSampling(TrainingJob):
                         batch[f"neg_gather_{key}"] = ns.gather
                 else:
                     batch[f"negatives_{key}"] = ns.materialize()
+            if self._sparse_paths:
+                self._add_row_index_payload(batch)
             yield batch
+
+    def _add_row_index_payload(self, batch: Dict[str, Any]):
+        """Host-side uniquify + remap for row-sparse updates: the sorted
+        unique ids ``uniq_e`` / ``uniq_r`` the batch touches, and its
+        indexes remapped to positions in them, so the step does only
+        gathers and row updates."""
+        e_pad = self.model.get_s_embedder().padded_vocab_size
+        r_pad = self.model.get_p_embedder().padded_vocab_size
+        ent_rows, rel_rows = self._touched_row_counts()
+        u_e, u_r = min(ent_rows, e_pad), min(rel_rows, r_pad)
+        triples = batch["triples"]
+        ent_parts = [triples[:, S], triples[:, O]]
+        rel_parts = [triples[:, P]]
+        for slot in SLOTS:
+            if self._sampler.num_samples[slot] <= 0:
+                continue
+            key = SLOT_STR[slot]
+            arr = batch.get(f"neg_unique_{key}",
+                            batch.get(f"negatives_{key}"))
+            (rel_parts if slot == P else ent_parts).append(arr.reshape(-1))
+
+        def uniquify(parts, size, vocab_pad):
+            """Sorted id vector of exactly ``size`` DISTINCT in-range
+            ids: the batch's real unique ids plus fill ids drawn from the
+            top of the (padded) vocabulary, skipping real ids. Fill rows
+            are never referenced by the remapped batch, so their
+            gradients are exactly zero and the row update leaves them
+            as they are (a fixed shape per step)."""
+            uniq = np.unique(np.concatenate(parts))
+            if len(uniq) > size:
+                raise AssertionError(
+                    f"touched-row bound {size} below actual {len(uniq)} "
+                    "(bug in _touched_row_counts)"
+                )
+            if len(uniq) < size:
+                n = size - len(uniq)
+                window = np.arange(max(vocab_pad - size - n, 0),
+                                   vocab_pad, dtype=uniq.dtype)
+                fill = np.setdiff1d(window, uniq)[-n:]
+                uniq = np.sort(np.concatenate([uniq, fill]))
+            return uniq.astype(np.int32)
+
+        uniq_e = uniquify(ent_parts, u_e, e_pad)
+        uniq_r = uniquify(rel_parts, u_r, r_pad)
+        # uniq is strictly unique, so side='left' and side='right' - 1
+        # agree; 'right' puts a run's gradient on its LAST position should
+        # duplicates ever appear, which the row-update kernel relies on
+        remap_e = lambda a: (
+            np.searchsorted(uniq_e, a, side="right") - 1
+        ).astype(np.int32)
+        remap_r = lambda a: (
+            np.searchsorted(uniq_r, a, side="right") - 1
+        ).astype(np.int32)
+        batch["triples"] = np.stack(
+            [remap_e(triples[:, S]), remap_r(triples[:, P]),
+             remap_e(triples[:, O])], axis=1,
+        )
+        for slot in SLOTS:
+            if self._sampler.num_samples[slot] <= 0:
+                continue
+            key = SLOT_STR[slot]
+            remap = remap_r if slot == P else remap_e
+            if f"neg_unique_{key}" in batch:
+                batch[f"neg_unique_{key}"] = remap(batch[f"neg_unique_{key}"])
+            else:
+                batch[f"negatives_{key}"] = remap(batch[f"negatives_{key}"])
+        batch["uniq_e"] = uniq_e
+        batch["uniq_r"] = uniq_r
 
     # ------------------------------------------------------------------ fused loss
 

@@ -19,8 +19,14 @@ from kge_tpu import Config as JaxConfig, Dataset as JaxDataset
 from kge_tpu.models import KgeModel as JaxKgeModel
 from kge_tpu.train.job import Job as JaxJob
 from kge_tpu.utils.io import load_checkpoint as jax_load_checkpoint
-from kge_tpu_torch import Config, cli
+from kge_tpu_torch import Config, Dataset, cli
+from kge_tpu_torch.train.job import Job
+from kge_tpu_torch.utils.io import load_checkpoint
 from kge_tpu_torch.utils.misc import resolve_device
+from tests.test_torch_train import (
+    TABLE_TOL, TOY, assert_tables_close, jax_job, jax_tables, make_config,
+    port_job, port_tables, record_epochs,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # toy-size tensors: one torch thread, since the test workers share the
@@ -182,16 +188,23 @@ TRAIN_SCRIPT = """
 import json, sys
 from kge_tpu_torch import cli
 
-config_file, folder = sys.argv[1], sys.argv[2]
+config_file, folder, sparse_folder = sys.argv[1:4]
 cpu = ["--job.device", "cpu", "--console.quiet", "true"]
 started = cli.main(["start", config_file, "--folder", folder,
                     "--train.max_epochs", "2", "--valid.every", "1", *cpu])
 resumed = cli.main(["resume", folder, "--train.max_epochs", "3", *cpu])
 tested = cli.main(["test", folder, *cpu])
+sparse = ["--tpu.sparse_updates", "always"]
+sparse_started = cli.main(["start", config_file, "--folder", sparse_folder,
+                           "--train.max_epochs", "1", *sparse, *cpu])
+sparse_resumed = cli.main(["resume", sparse_folder, "--train.max_epochs",
+                           "2", *sparse, *cpu])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
 print(json.dumps(dict(loaded=loaded,
                       epochs=[started["epoch"], resumed["epoch"]],
+                      sparse_epochs=[sparse_started["epoch"],
+                                     sparse_resumed["epoch"]],
                       mrr=tested["mean_reciprocal_rank_filtered"])))
 """
 
@@ -212,12 +225,19 @@ def test_cli_trains_and_resumes_without_importing_kge_tpu(tmp_path):
     with open(config_file, "w") as f:
         yaml.safe_dump(NEGSAMP_CONFIG, f)
     folder = str(tmp_path / "port-run")
-    r = _run(["-c", TRAIN_SCRIPT, config_file, folder],
+    sparse_folder = str(tmp_path / "port-sparse-run")
+    r = _run(["-c", TRAIN_SCRIPT, config_file, folder, sparse_folder],
              env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-3000:]
     result = json.loads(r.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["epochs"] == [2, 3]
+    assert result["sparse_epochs"] == [1, 2]
+    with open(os.path.join(sparse_folder, "kge.log")) as f:
+        assert f.read().count("Using row-sparse embedding updates.") == 2
+    assert set(jax_load_checkpoint(os.path.join(
+        sparse_folder, "checkpoint_00002.pt"))["opt_state"]) == {
+            "sparse", "tx"}
     port_epochs = epoch_entries(folder)
     assert [e["epoch"] for e in port_epochs] == [1, 2, 3]
     assert all(np.isfinite(e["avg_loss"]) for e in port_epochs)
@@ -237,3 +257,55 @@ def test_cli_trains_and_resumes_without_importing_kge_tpu(tmp_path):
     JaxJob.create(config, JaxDataset.create(config)).run()
     (jax_epoch,) = epoch_entries(jax_folder)
     assert set(port_epochs[0]) == set(jax_epoch)
+
+
+def _resume(package, checkpoint_file, dataset, sparse_updates):
+    """kge_tpu's (``package`` "jax") or the port's job resumed from a
+    checkpoint for one more epoch, without a folder, under the given
+    ``tpu.sparse_updates``; returns (job, its epochs' losses)."""
+    jax_side = package == "jax"
+    checkpoint = (jax_load_checkpoint if jax_side
+                  else load_checkpoint)(checkpoint_file)
+    checkpoint.pop("folder")
+    config = (JaxConfig if jax_side else Config).create_from(checkpoint)
+    config.set("tpu.sparse_updates", sparse_updates)
+    config.set("train.max_epochs", 2)
+    job = (JaxJob if jax_side else Job).create_from(
+        checkpoint, new_config=config, dataset=dataset)
+    assert job.epoch == 1
+    losses = record_epochs(job)
+    job.run()
+    return job, losses
+
+
+@pytest.mark.parametrize("writer", ["kge_tpu", "port"])
+def test_sparse_checkpoints_cross_over(writer, tmp_path):
+    """A row-sparse run's checkpoint after epoch 1, in kge_tpu's sparse
+    layout (the Adagrad sums under ``opt_state["sparse"]``), resumes in
+    the other package, row-sparse and dense, on the writer's own
+    trajectory: epoch losses rtol 1e-5, tables atol 1e-4 (Adagrad's sign
+    trap, tests/test_torch_train.py)."""
+    options = {"tpu.sparse_updates": "always",
+               "tpu.fused_negsamp_loss": "always", "train.max_epochs": 1}
+    make = jax_job if writer == "kge_tpu" else port_job
+    run = make(options, str(tmp_path / writer))
+    run.run()
+    checkpoint_file = run.config.checkpoint_file(1)
+    opt_state = jax_load_checkpoint(checkpoint_file)["opt_state"]
+    assert set(opt_state) == {"sparse", "tx"}
+    assert set(opt_state["sparse"]) == {"entity_embedder.weights",
+                                        "relation_embedder.weights"}
+    datasets = {"jax": JaxDataset.create(make_config(JaxConfig, options),
+                                         TOY),
+                "port": Dataset.create(make_config(Config, options), TOY)}
+    own = "jax" if writer == "kge_tpu" else "port"
+    other = "port" if own == "jax" else "jax"
+    want_job, want = _resume(own, checkpoint_file, datasets[own], "always")
+    tables = jax_tables if own == "jax" else port_tables
+    other_tables = port_tables if own == "jax" else jax_tables
+    for mode in ("always", "never"):
+        job, got = _resume(other, checkpoint_file, datasets[other], mode)
+        assert len(job._sparse_paths) == (2 if mode == "always" else 0)
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        assert_tables_close(other_tables(job), tables(want_job),
+                            **TABLE_TOL)
