@@ -16,10 +16,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (B=100, C=14,541, D=128), at the last batch of that run (B=66) and at
    a Wikidata5M-size table (B=1024, C=4,818,679, D=128), on seeded normal
    inputs plus constructed cases (duplicate candidate rows, +-inf and
-   NaN true scores, NaN candidate rows, cand_valid holes, a ragged tail).
-   Counts must be equal; the only pairs allowed to differ are those whose
-   float64 score lies within 1e-6*|t| of the tie boundary. Times are
-   medians over CUDA-event-timed runs after warm-up;
+   NaN true scores, NaN candidate rows, cand_valid holes, a ragged tail),
+   and at the kernel's tile edges, in both of its shapes (B in {1, 127,
+   128, 129, 256} at 14,541 candidates, B in {127, 128, 129} at 20,000,
+   D = 37, D = 416, cand as a leading-row view of a longer table, 16-byte
+   aligned and not). Counts must be equal; the only pairs allowed to differ are
+   those whose float64 score lies within 1e-6*|t| of the tie boundary.
+   Times are medians over CUDA-event-timed runs after warm-up; beside them
+   the device time of a call (torch.profiler), the host time to enqueue
+   one, and the device time of ``torch.matmul(q, cand.T)``; at the
+   Wikidata5M table the time of a call at B = 1024 and B = 256, each with
+   its bound;
 4. eval phase: a synthetic dataset with FB15k-237's sizes (14,541
    entities, 237 relations, 272,115 / 17,535 / 20,466 triples, skewed
    degrees) and a ComplEx dim-128 checkpoint with seeded random weights
@@ -31,11 +38,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. K1 kernel phase: ``shared_ce_loss`` (``csrc/negsamp_loss.cu``) against
    ``shared_ce_loss_reference`` on the card, at the training shape
    (B=1024 rows, N=129 candidates, D=128), at a ragged one (B=1000,
-   N=37) and on constructed cases (a row with no drawn candidate, rows of
-   weight 0, an undrawn candidate scoring 1600, a NaN score with a
-   positive count): loss and lse within rtol 1e-5, the gradients (kernel
-   forward + torch backward vs autograd through the plain version)
-   within rtol 1e-4, atol 1e-6, and the loss bit-identical over 10 runs;
+   N=37), at the kernel's edges (N in {1, 8, 129, 520} by B in {1, 129,
+   1000}, and D = 37) and on constructed cases (a row with no drawn
+   candidate, rows of weight 0, an undrawn candidate scoring 1600, a NaN
+   score with a positive count): loss and lse within rtol 1e-5, the
+   gradients (kernel forward + torch backward vs autograd through the
+   plain version) within rtol 1e-4, atol 1e-6, and the loss bit-identical
+   over 10 runs; one kernel a call (torch.profiler), with the same three
+   extra times as K2;
 6. train phase: ``python -m kge_tpu_torch start``'s entry point trains
    ComplEx dim 128 on the same synthetic graph with the hyperparameters
    of ``examples/wikidata5m-complex-train.yaml`` (shared negative
@@ -67,7 +77,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``start`` of ``examples/wikidata5m-complex-train.yaml`` as it is for
    one epoch, then ``valid``: row-sparse updates must be on, K3 Adagrad
    and K1 launched 978 times each, K2 42 times, the loss finite and the
-   MRR in (0, 1]. From the same ``checkpoint_00000.pt``, one epoch each
+   MRR in (0, 1]; ``valid`` again under torch.profiler gives K2's share of
+   the validation's time. From the same ``checkpoint_00000.pt``, one epoch each
    row-sparse on the card (profiled), dense on the card and row-sparse
    on the host (plain K1 and K3): first batch within 1e-5 relative and
    epoch within 1e-3. Prints ms per step, triples/s, set-up and
@@ -213,7 +224,8 @@ def check_rank_counts(rc, label, q, cand, true, valid) -> dict:
                 fail(f"rank_counts {label}: row {r} kernel ({int(r_k[r])}, "
                      f"{int(t_k[r])}) vs plain ({int(r_p[r])}, "
                      f"{int(t_p[r])}), only {n} pairs at the tie boundary")
-    if int(t_k[1]) == 0 and float(true[1]) == float("-inf"):
+    if (q.shape[0] > 1 and int(t_k[1]) == 0
+            and float(true[1]) == float("-inf")):
         fail(f"rank_counts {label}: NaN candidate did not tie with -inf")
     max_err = max(int(d_rank.max()), int(d_ties.max()))
     print(f"rank_counts {label}: B={q.shape[0]} C={cand.shape[0]} "
@@ -224,6 +236,47 @@ def check_rank_counts(rc, label, q, cand, true, valid) -> dict:
     return dict(max_abs_err=max_err, boundary_pairs=n_boundary)
 
 
+def rank_edge_cases(rc, seed, device) -> int:
+    """K2 at its tile edges, in both of its shapes (Narrow when the block
+    tiles are at most two an SM or D > 400, Wide otherwise): B around
+    Narrow's 112-row tiles (B <= 129 at 14,541 candidates) and Wide's
+    128-row tiles (B = 127, 128, 129 at 20,000 candidates; 256 and 300 at
+    14,541), a ragged last candidate tile, D = 37 (4-byte copies), D = 416
+    (Narrow at either B), and cand as a leading-row view of a longer
+    table, 16-byte aligned and not. Returns the largest count error."""
+    C, D = FB15K237["entities"], DIM
+    cases = [(f"B={B}", make_rank_inputs(B, C, D, seed + B, device))
+             for B in (1, 127, 128, 129, 256)]
+    cases += [(f"B={B} C=20000 (Wide)",
+               make_rank_inputs(B, 20000, D, seed + 3 * B, device))
+              for B in (127, 128, 129)]
+    for B in (100, 300):
+        cases.append((f"B={B} D=37 (4-byte copies)",
+                      make_rank_inputs(B, C, 37, seed + B, device)))
+        cases.append((f"B={B} D=416 (Narrow, q in the ring)",
+                      make_rank_inputs(B, C, 416, seed + B, device)))
+    for B in (100, 300):
+        q, cand, true, valid = make_rank_inputs(B, C, D, seed + 7, device)
+        table = torch.cat([cand, torch.randn(40, D, device=device)])
+        cases.append((f"B={B} leading-row view", (q, table[:C], true, valid)))
+        flat = torch.empty(C * D + 1, device=device)
+        flat[1:] = cand.flatten()
+        cases.append((f"B={B} leading-row view at 4 bytes past 16 (4-byte "
+                      "copies)", (q, flat[1:].view(C, D), true, valid)))
+    return max(check_rank_counts(rc, label, *inputs)["max_abs_err"]
+               for label, inputs in cases)
+
+
+def rank_bound(B, C, D):
+    """(bound_ms, bound_by, flops, bytes) of one rank_counts call."""
+    flops = 2.0 * B * C * D
+    moved = 4.0 * (B * D + C * D + B + C) + 2 * 4.0 * B
+    by = ("operations" if flops / PEAK_FP32_FLOPS >= moved / PEAK_BYTES_PER_S
+          else "bytes")
+    return (max(flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES_PER_S) * 1e3, by,
+            flops, moved)
+
+
 def kernel_phase(rc, seed, device) -> dict:
     B, C, D = EVAL_BATCH, FB15K237["entities"], DIM
     q, cand, true, valid = make_rank_inputs(B, C, D, seed, device)
@@ -231,41 +284,50 @@ def kernel_phase(rc, seed, device) -> dict:
     tail = FB15K237["splits"]["test"] % EVAL_BATCH
     check_rank_counts(rc, "last batch", q[:tail].contiguous(), cand,
                       true[:tail].contiguous(), valid)
+    edge_err = rank_edge_cases(rc, seed, device)
 
-    ms = cuda_ms(lambda: rc.rank_counts(q, cand, true, valid, ATOL,
-                                               RTOL), reps=50)
+    call = lambda: rc.rank_counts(q, cand, true, valid, ATOL, RTOL)
+    library = lambda: torch.matmul(q, cand.T)
+    ms = cuda_ms(call, reps=50)
     plain_ms = cuda_ms(lambda: rc.rank_counts_reference(
         q, cand, true, valid, ATOL, RTOL), reps=20)
-    library_ms = cuda_ms(lambda: torch.matmul(q, cand.T), reps=50)
-    flops = 2.0 * B * C * D
-    moved = 4.0 * (B * D + C * D + B + C) + 2 * 4.0 * B
-    bound_ms = max(flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES_PER_S) * 1e3
-    bound_by = ("operations" if flops / PEAK_FP32_FLOPS
-                >= moved / PEAK_BYTES_PER_S else "bytes")
+    library_ms = cuda_ms(library, reps=50)
+    prof = call_profile("rank_counts eval shape", call, library)
+    bound_ms, bound_by, flops, moved = rank_bound(B, C, D)
     print(f"rank_counts eval shape: kernel_ms {ms} plain_ms {plain_ms} "
           f"library_ms (matmul q @ cand.T) {library_ms} bound_ms {bound_ms} "
           f"({bound_by}; {flops / 1e9} GFLOP, {moved / 1e6} MB)", flush=True)
 
-    # Wikidata5M-size table: correctness, and one timing for the record
-    Bw = 1024
-    qw, cw, tw, vw = make_rank_inputs(Bw, W5M_ENTITIES, D, seed + 1,
+    # Wikidata5M-size table: correctness at B = 1024 and at the
+    # validation's B = 256 (each shape the path uses is checked before it
+    # is timed), then the time of a call at both
+    qw, cw, tw, vw = make_rank_inputs(1024, W5M_ENTITIES, D, seed + 1,
                                       device)
     w5m = check_rank_counts(rc, "wikidata5m size", qw, cw, tw, vw)
-    w_ms = cuda_ms(lambda: rc.rank_counts(qw, cw, tw, vw, ATOL, RTOL),
-                   reps=5, warmup=1)
+    w5m_valid = check_rank_counts(
+        rc, f"wikidata5m size B={VALID_BATCH}",
+        qw[:VALID_BATCH].contiguous(), cw, tw[:VALID_BATCH].contiguous(), vw)
     w_plain = cuda_ms(lambda: rc.rank_counts_reference(
         qw, cw, tw, vw, ATOL, RTOL), reps=3, warmup=1)
-    w_flops = 2.0 * Bw * W5M_ENTITIES * D
-    w_bytes = 4.0 * (Bw * D + W5M_ENTITIES * D + Bw + W5M_ENTITIES) + 8.0 * Bw
-    w_bound = max(w_flops / PEAK_FP32_FLOPS, w_bytes / PEAK_BYTES_PER_S) * 1e3
-    print(f"rank_counts wikidata5m size: kernel_ms {w_ms} plain_ms {w_plain} "
-          f"bound_ms {w_bound} ({w_flops / 1e9} GFLOP, {w_bytes / 1e9} GB)",
-          flush=True)
+    for Bw in (1024, VALID_BATCH):
+        qb, tb = qw[:Bw].contiguous(), tw[:Bw].contiguous()
+        call_w = lambda: rc.rank_counts(qb, cw, tb, vw, ATOL, RTOL)
+        w_ms = cuda_ms(call_w, reps=5, warmup=1)
+        w_us = kernel_device_ms(call_w, 3, "rank_count") * 1e3
+        w_bound, _, w_flops, w_bytes = rank_bound(Bw, W5M_ENTITIES, D)
+        print(f"rank_counts wikidata5m size B={Bw}: kernel_ms {w_ms} "
+              f"kernel_us {w_us} bound_ms {w_bound} (operations; "
+              f"{w_flops / 1e9} GFLOP, {w_bytes / 1e9} GB); share of the "
+              f"bound {w_bound / (w_us / 1e3)}"
+              + (f"; plain_ms {w_plain}" if Bw == 1024 else ""), flush=True)
     del qw, cw, tw, vw
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max(main["max_abs_err"], w5m["max_abs_err"]),
+    return dict(max_abs_err=max(main["max_abs_err"], w5m["max_abs_err"],
+                                w5m_valid["max_abs_err"], edge_err),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms,
+                kernel_us=prof["kernel_us"], host_us=prof["host_us"],
+                library_kernel_us=prof["library_kernel_us"])
 
 
 # ----------------------------------------------------------------- eval
@@ -517,7 +579,7 @@ def check_k1(nl, label, inputs) -> float:
     B, D = inputs[0].shape
     print(f"shared_ce_loss {label}: B={B} N={inputs[1].shape[0]} D={D} "
           f"loss {float(loss)} (plain {float(ref_loss)}, relative "
-          f"difference {abs(float(loss - ref_loss)) / abs(float(ref_loss))}"
+          f"difference {relative(float(loss), float(ref_loss))}"
           f"), lse max_abs_err {err}", flush=True)
     return err
 
@@ -528,6 +590,16 @@ def k1_phase(nl, seed, device) -> dict:
     err = check_k1(nl, "training shape", main)
     err = max(err, check_k1(nl, "ragged", make_k1_inputs(1000, 37, D,
                                                         seed + 1, device)))
+    # the kernel's edges: one candidate to 520 (past one staged block: the
+    # chunked ring), one row to a ragged last block, D = 37 (4-byte copies)
+    for N_edge in (1, 8, 129, 520):
+        for B_edge in (1, 129, 1000):
+            err = max(err, check_k1(
+                nl, f"B={B_edge} N={N_edge}",
+                make_k1_inputs(B_edge, N_edge, D, seed + N_edge + B_edge,
+                               device)))
+    err = max(err, check_k1(nl, "D=37 (4-byte copies)",
+                            make_k1_inputs(B, N, 37, seed + 2, device)))
     special = constructed_k1_inputs(main)
     err = max(err, check_k1(nl, "special rows", special))
     loss, lse = nl.shared_ce_forward(*special)
@@ -546,9 +618,16 @@ def k1_phase(nl, seed, device) -> dict:
         fail(f"shared_ce_loss is not deterministic: {sorted(bits)}")
 
     q, cand = main[0], main[1]
-    ms = cuda_ms(lambda: nl.shared_ce_forward(*main), reps=50)
+    call = lambda: nl.shared_ce_forward(*main)
+    library = lambda: torch.matmul(q, cand.T)
+    ms = cuda_ms(call, reps=50)
     plain_ms = cuda_ms(lambda: nl.shared_ce_loss_reference(*main), reps=50)
-    library_ms = cuda_ms(lambda: torch.matmul(q, cand.T), reps=50)
+    library_ms = cuda_ms(library, reps=50)
+    prof = call_profile("shared_ce_loss training shape", call, library)
+    kernels = sum(n for name, (_, n) in prof["by_name"].items()
+                  if "memset" not in name.lower())
+    if kernels != 1:
+        fail(f"shared_ce_loss launched {kernels} kernels a call, expected 1")
     flops = 2.0 * B * N * D
     moved = 4.0 * (B * D + N * D + B * N + 3 * B + 1)
     bound_ms = max(flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES_PER_S) * 1e3
@@ -559,7 +638,9 @@ def k1_phase(nl, seed, device) -> dict:
           f"{bound_ms} ({bound_by}; {flops / 1e6} MFLOP, {moved / 1e6} MB); "
           "loss bit-identical over 10 runs", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                kernel_us=prof["kernel_us"], host_us=prof["host_us"],
+                library_kernel_us=prof["library_kernel_us"])
 
 
 # ----------------------------------------------------------------- K3
@@ -604,10 +685,10 @@ def ulp_distance(a, b):
     return torch.where(both_nan, torch.zeros_like(ia), (ia - ib).abs())
 
 
-def kernel_device_ms(fn, reps: int, name_part: str) -> float:
-    """Mean device milliseconds of the kernels named ``*name_part*`` per
-    call of ``fn``, from torch.profiler (a wrapper call's CUDA-event time
-    also holds the host's launch work when that is the longer)."""
+def device_us_by_name(fn, reps: int) -> dict:
+    """Device microseconds and launches per call of ``fn`` for each
+    kernel, memset and copy it runs on the card, from torch.profiler:
+    {name: (us, launches)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -617,9 +698,48 @@ def kernel_device_ms(fn, reps: int, name_part: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name_part in e.name
-               ) / 1e3 / reps
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return {name: (us / reps, n / reps) for name, (us, n) in out.items()}
+
+
+def kernel_device_ms(fn, reps: int, name_part: str) -> float:
+    """Mean device milliseconds of the kernels named ``*name_part*`` per
+    call of ``fn``, from torch.profiler (a wrapper call's CUDA-event time
+    also holds the host's launch work when that is the longer)."""
+    return sum(us for name, (us, _) in device_us_by_name(fn, reps).items()
+               if name_part in name) / 1e3
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds to enqueue one call of ``fn``: a host clock over
+    ``reps`` calls with one synchronize after them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def call_profile(label, fn, library, reps=50) -> dict:
+    """kernel_us (the device time of every kernel and memset of one call
+    of ``fn``), host_us and library_kernel_us (the device time of
+    ``library``); prints the device time by name."""
+    by_name = device_us_by_name(fn, reps)
+    library_us = sum(us for us, _ in device_us_by_name(library, reps).values())
+    out = dict(kernel_us=sum(us for us, _ in by_name.values()),
+               host_us=host_us(fn), library_kernel_us=library_us)
+    print(f"{label}: device us per call by name "
+          + json.dumps({name[:80]: [us, n] for name, (us, n) in by_name.items()})
+          + f"; kernel_us {out['kernel_us']} host_us {out['host_us']} "
+          f"library_kernel_us {library_us}", flush=True)
+    return dict(out, by_name=by_name)
 
 
 def run_k3(ru, optimizer, inputs, kernel: bool):
@@ -930,7 +1050,7 @@ def first_batch_loss(folder: str) -> float:
 
 
 def relative(a: float, b: float) -> float:
-    return abs(a - b) / abs(b)
+    return abs(a - b) / abs(b) if b else abs(a - b)
 
 
 def sgd_phase(kernels, scratch, config_file) -> dict:
@@ -1029,6 +1149,18 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         torch.cuda.synchronize()
         valid_seconds = time.perf_counter() - t0
         valid_counts = counts(kernels)
+        # K2's share of the validation: the same call under the profiler
+        profiled, valid_device = profile_run(
+            "valid wikidata5m", "entity_ranking.",
+            lambda: cli.main(["valid", run]))
+        k2_ms = sum(ms for name, (ms, _) in valid_device.items()
+                    if "rank_count" in name)
+        print("valid wikidata5m K2: " + json.dumps(dict(
+            k2_device_ms=k2_ms,
+            share_of_valid_epoch=k2_ms / (valid["epoch_time"] * 1e3),
+            share_of_profiled_valid_epoch=k2_ms / (profiled["epoch_time"]
+                                                   * 1e3),
+            valid_epoch_seconds=valid["epoch_time"])), flush=True)
 
         steps = epoch["batches"]
         setup = start_seconds - epoch["epoch_time"] - sum(start_saves)
@@ -1221,6 +1353,8 @@ def main():
         launches=ev["launches"], max_abs_err=k2["max_abs_err"],
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
         bound_by=k2["bound_by"], library_ms=k2["library_ms"],
+        kernel_us=k2["kernel_us"], host_us=k2["host_us"],
+        library_kernel_us=k2["library_kernel_us"],
     ), dict(
         name="shared_ce_loss", route="cuda",
         source="kge_tpu_torch/csrc/negsamp_loss.cu",
@@ -1228,6 +1362,8 @@ def main():
         launches=tr["k1_launches"], max_abs_err=k1["max_abs_err"],
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
+        kernel_us=k1["kernel_us"], host_us=k1["host_us"],
+        library_kernel_us=k1["library_kernel_us"],
     )] + [dict(
         name=f"row_update_{optimizer}", route="cuda",
         source="kge_tpu_torch/csrc/row_update.cu",

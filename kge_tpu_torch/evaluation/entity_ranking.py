@@ -202,14 +202,16 @@ class EntityRankingJob(EvaluationJob):
     # -------------------------------------------------------------- fused path
 
     def _fused_counts(self, s, p, o, coords_sp, coords_po, o_true, s_true,
-                      num_rankings: int) -> torch.Tensor:
+                      num_rankings: int,
+                      cand_valid: torch.Tensor) -> torch.Tensor:
         """[num_rankings, 4, B] int32 (o_rank, o_tie, s_rank, s_tie) per
         ranking variant (0 = raw, then filtered). Dot-form queries; one
         rank-count launch per side over the whole candidate table; and
         filtering by counting: only the label coordinates are scored, and
         their greater/tie contributions are subtracted from the raw
         counts — the same semantics as masking labels to -inf, without a
-        [B, E] score matrix."""
+        [B, E] score matrix. ``cand_valid`` is the run's all-ones
+        candidate mask [E]."""
         model = self.model
         atol, rtol = self.tie_atol, self.tie_rtol
         num_entities = self.dataset.num_entities()
@@ -222,10 +224,8 @@ class EntityRankingJob(EvaluationJob):
 
         # the unpadded tables, read in place by the kernel
         cand_sp, cand_po = model.dot_candidates_all(ctx=ctx)
-        valid = torch.ones(cand_sp.shape[0], dtype=torch.float32,
-                           device=cand_sp.device)
-        r0, t0 = rank_counts(q_sp, cand_sp, o_true, valid, atol, rtol)
-        r1, t1 = rank_counts(q_po, cand_po, s_true, valid, atol, rtol)
+        r0, t0 = rank_counts(q_sp, cand_sp, o_true, cand_valid, atol, rtol)
+        r1, t1 = rank_counts(q_po, cand_po, s_true, cand_valid, atol, rtol)
         raw = torch.stack([r0, t0, r1, t1])
 
         def coord_counts(q, coords, true, side):
@@ -333,6 +333,9 @@ class EntityRankingJob(EvaluationJob):
         columns = self._upload(
             np.ascontiguousarray(self.triples.T.astype(np.int64))
         )
+        # every candidate counts: one mask for the whole run
+        cand_valid = torch.ones(self.dataset.num_entities(),
+                                dtype=torch.float32, device=columns.device)
         example_traces = []
         pending = []
         # Spans (torch.profiler.record_function; no cost without a
@@ -366,7 +369,7 @@ class EntityRankingJob(EvaluationJob):
                     totals = self._fused_counts(
                         s, p, o, self._upload(coords_sp),
                         self._upload(coords_po), o_true, s_true,
-                        len(rankings),
+                        len(rankings), cand_valid,
                     )
                 pending.append(
                     (batch, totals, torch.stack([o_spo, s_spo, o_true, s_true]))

@@ -70,78 +70,87 @@ def shared_ce_loss_reference(q: torch.Tensor, cand: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = native.load("negsamp_loss")
-    lib.kge_shared_ce_loss.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.kge_shared_ce_loss.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.kge_shared_ce_loss.restype = ctypes.c_int
-    lib.kge_shared_ce_loss_blocks.argtypes = [ctypes.c_int]
-    lib.kge_shared_ce_loss_blocks.restype = ctypes.c_int
+    lib.kge_shared_ce_loss_out_size.argtypes = [ctypes.c_int]
+    lib.kge_shared_ce_loss_out_size.restype = ctypes.c_int
     return lib
 
 
-def _check(q, cand, pos, counts, w):
-    tensors = dict(q=q, cand=cand, pos=pos, counts=counts, w=w)
-    for name, x in tensors.items():
+@functools.lru_cache(maxsize=64)
+def _out_size(B: int) -> int:
+    """Floats of the kernel's output for B rows: lse, the loss, a ticket
+    counter and one partial per block."""
+    return _library().kge_shared_ce_loss_out_size(B)
+
+
+def _check(q, cand, pos, counts, w) -> Tuple[int, int, int, torch.device]:
+    """Refuses what the kernel does not take; returns (B, N, D, device)."""
+    device = None
+    for name, x in (("q", q), ("cand", cand), ("pos", pos),
+                    ("counts", counts), ("w", w)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"shared_ce_loss: {name} must be a tensor")
         if x.dtype != torch.float32:
             raise TypeError(
                 f"shared_ce_loss: {name} must be float32, got {x.dtype}"
             )
-        if x.device != q.device:
+        x_device = x.device
+        device = device or x_device
+        if x_device != device:
             raise ValueError(
-                f"shared_ce_loss: {name} is on {x.device}, q on {q.device}"
+                f"shared_ce_loss: {name} is on {x_device}, q on {device}"
             )
         if not x.is_contiguous():
             raise ValueError(f"shared_ce_loss: {name} must be contiguous")
-    if q.dim() != 2 or cand.dim() != 2 or q.shape[1] != cand.shape[1]:
+    q_shape, cand_shape = tuple(q.shape), tuple(cand.shape)
+    if len(q_shape) != 2 or len(cand_shape) != 2 or q_shape[1] != cand_shape[1]:
         raise ValueError(
             f"shared_ce_loss: q [B, D] and cand [N, D] expected, got "
-            f"{tuple(q.shape)} and {tuple(cand.shape)}"
+            f"{q_shape} and {cand_shape}"
         )
-    B, N = q.shape[0], cand.shape[0]
-    if (tuple(pos.shape) != (B,) or tuple(w.shape) != (B,)
-            or tuple(counts.shape) != (B, N)):
+    (B, D), N = q_shape, cand_shape[0]
+    pos_shape, w_shape = tuple(pos.shape), tuple(w.shape)
+    counts_shape = tuple(counts.shape)
+    if pos_shape != (B,) or w_shape != (B,) or counts_shape != (B, N):
         raise ValueError(
             f"shared_ce_loss: pos [{B}], w [{B}] and counts [{B}, {N}] "
-            f"expected, got {tuple(pos.shape)}, {tuple(w.shape)} and "
-            f"{tuple(counts.shape)}"
+            f"expected, got {pos_shape}, {w_shape} and {counts_shape}"
         )
-    if max(B, N, q.shape[1]) >= 2 ** 31:
+    if max(B, N, D) >= 2 ** 31:
         raise ValueError("shared_ce_loss: sizes must be below 2^31")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"shared_ce_loss: unsupported device {q.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"shared_ce_loss: unsupported device {device}")
+    return B, N, D, device
 
 
 def shared_ce_forward(q: torch.Tensor, cand: torch.Tensor,
                       pos: torch.Tensor, counts: torch.Tensor,
                       w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, lse) without gradients: the kernel on a CUDA device, the
-    plain version on the CPU. Arguments as for ``shared_ce_loss``."""
-    _check(q, cand, pos, counts, w)
-    if q.device.type == "cpu":
+    plain version on the CPU. Arguments as for ``shared_ce_loss``. On the
+    card lse and the loss are views of the kernel's one output buffer."""
+    B, N, D, device = _check(q, cand, pos, counts, w)
+    if device.type == "cpu":
         return shared_ce_loss_reference(q, cand, pos, counts, w)
-    B, D = q.shape
-    N = cand.shape[0]
     if B == 0:
         return q.new_zeros(()), q.new_empty((0,))
-    lib = _library()
-    lse = torch.empty(B, dtype=torch.float32, device=q.device)
-    partials = torch.empty(lib.kge_shared_ce_loss_blocks(B),
-                           dtype=torch.float32, device=q.device)
-    loss = torch.empty((), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.kge_shared_ce_loss(
-            q.data_ptr(), cand.data_ptr(), pos.data_ptr(), counts.data_ptr(),
-            w.data_ptr(), lse.data_ptr(), partials.data_ptr(),
-            loss.data_ptr(), B, N, D,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    out = torch.empty(_out_size(B), dtype=torch.float32, device=device)
+    args = (q.data_ptr(), cand.data_ptr(), pos.data_ptr(), counts.data_ptr(),
+            w.data_ptr(), out.data_ptr(), B, N, D,
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = _library().kge_shared_ce_loss(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _library().kge_shared_ce_loss(*args)
     if err != 0:
         raise RuntimeError(
             f"negsamp_loss kernel launch failed with CUDA error {err}"
         )
     shared_ce_loss.launches += 1
-    return loss, lse
+    return out[B], out[:B]
 
 
 class _SharedCELoss(torch.autograd.Function):

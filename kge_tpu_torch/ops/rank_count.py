@@ -77,41 +77,48 @@ def rank_counts_reference(q: torch.Tensor, cand: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = native.load("rank_count").kge_rank_counts
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, cand, true, cand_valid):
-    tensors = dict(q=q, cand=cand, true=true, cand_valid=cand_valid)
-    for name, x in tensors.items():
+def _check(q, cand, true, cand_valid) -> Tuple[int, int, int, torch.device]:
+    """Refuses what the kernel does not take; returns (B, C, D, device)."""
+    device = None
+    for name, x in (("q", q), ("cand", cand), ("true", true),
+                    ("cand_valid", cand_valid)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"rank_counts: {name} must be a tensor")
         if x.dtype != torch.float32:
             raise TypeError(
                 f"rank_counts: {name} must be float32, got {x.dtype}"
             )
-        if x.device != q.device:
+        x_device = x.device
+        device = device or x_device
+        if x_device != device:
             raise ValueError(
-                f"rank_counts: {name} is on {x.device}, q on {q.device}"
+                f"rank_counts: {name} is on {x_device}, q on {device}"
             )
         if not x.is_contiguous():
             raise ValueError(f"rank_counts: {name} must be contiguous")
-    if q.dim() != 2 or cand.dim() != 2 or q.shape[1] != cand.shape[1]:
+    q_shape, cand_shape = tuple(q.shape), tuple(cand.shape)
+    if len(q_shape) != 2 or len(cand_shape) != 2 or q_shape[1] != cand_shape[1]:
         raise ValueError(
             f"rank_counts: q [B, D] and cand [C, D] expected, got "
-            f"{tuple(q.shape)} and {tuple(cand.shape)}"
+            f"{q_shape} and {cand_shape}"
         )
-    B, C = q.shape[0], cand.shape[0]
-    if tuple(true.shape) != (B,) or tuple(cand_valid.shape) != (C,):
+    (B, D), C = q_shape, cand_shape[0]
+    true_shape, valid_shape = tuple(true.shape), tuple(cand_valid.shape)
+    if true_shape != (B,) or valid_shape != (C,):
         raise ValueError(
             f"rank_counts: true [{B}] and cand_valid [{C}] expected, got "
-            f"{tuple(true.shape)} and {tuple(cand_valid.shape)}"
+            f"{true_shape} and {valid_shape}"
         )
-    if max(B, C, q.shape[1]) >= 2 ** 31:
+    if max(B, C, D) >= 2 ** 31:
         raise ValueError("rank_counts: sizes must be below 2^31")
+    return B, C, D, device
 
 
 def rank_counts(q: torch.Tensor, cand: torch.Tensor, true: torch.Tensor,
@@ -125,30 +132,31 @@ def rank_counts(q: torch.Tensor, cand: torch.Tensor, true: torch.Tensor,
     one device. NaN scores compare as -inf; the caller replaces NaN true
     scores beforehand. CUDA tensors launch the kernel (and count the
     launch in ``rank_counts.launches``); CPU tensors take
-    ``rank_counts_reference``."""
-    _check(q, cand, true, cand_valid)
-    if q.device.type == "cpu":
+    ``rank_counts_reference``. On the card both counts are rows of one
+    [2, B] buffer, which the kernel's entry point zeroes on the stream."""
+    B, C, D, device = _check(q, cand, true, cand_valid)
+    if device.type == "cpu":
         return rank_counts_reference(q, cand, true, cand_valid, atol, rtol)
-    if q.device.type != "cuda":
-        raise ValueError(f"rank_counts: unsupported device {q.device}")
-    B, D = q.shape
-    C = cand.shape[0]
-    rank = torch.zeros(B, dtype=torch.int32, device=q.device)
-    ties = torch.zeros(B, dtype=torch.int32, device=q.device)
+    if device.type != "cuda":
+        raise ValueError(f"rank_counts: unsupported device {device}")
     if B == 0 or C == 0:
-        return rank, ties
-    with torch.cuda.device(q.device):
-        err = _kernel()(
-            q.data_ptr(), cand.data_ptr(), true.data_ptr(),
-            cand_valid.data_ptr(), rank.data_ptr(), ties.data_ptr(),
-            B, C, D, atol, rtol, torch.cuda.current_stream().cuda_stream,
-        )
+        out = torch.zeros((2, B), dtype=torch.int32, device=device)
+        return out[0], out[1]
+    out = torch.empty((2, B), dtype=torch.int32, device=device)
+    args = (q.data_ptr(), cand.data_ptr(), true.data_ptr(),
+            cand_valid.data_ptr(), out.data_ptr(), B, C, D, atol, rtol,
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = _kernel()(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _kernel()(*args)
     if err != 0:
         raise RuntimeError(
             f"rank_count kernel launch failed with CUDA error {err}"
         )
     rank_counts.launches += 1
-    return rank, ties
+    return out[0], out[1]
 
 
 rank_counts.launches = 0

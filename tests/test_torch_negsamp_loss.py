@@ -101,6 +101,28 @@ def test_shared_ce_loss_matches_kge_tpu(B, N, D):
     assert_matches(make_inputs(B, N, D, seed=B + N + D))
 
 
+# the kernel's edges: one candidate to 520 (past one staged block: its
+# chunked ring), one row to a ragged last block of 8 rows, and D = 37 (its
+# 4-byte copies)
+@pytest.mark.parametrize("N", [1, 8, 129, 520])
+@pytest.mark.parametrize("B", [1, 129, 1000])
+def test_shared_ce_loss_edges_match_kge_tpu(B, N):
+    assert_matches(shifted(make_inputs(B, N, 16, seed=B * N)))
+
+
+def test_shared_ce_loss_odd_depth_matches_kge_tpu():
+    assert_matches(shifted(make_inputs(129, 129, 37, seed=37)))
+
+
+def shifted(inputs, by=4.0):
+    """The inputs with pos moved up by ``by``: with hundreds of rows and
+    few candidates some lse would lie within 1e-2 of 0, where a relative
+    tolerance alone cannot hold float32 rounding; lse >= pos keeps them
+    away from it."""
+    q, cand, pos, counts, w = inputs
+    return [q, cand, (pos + by).astype(np.float32), counts, w]
+
+
 def test_extreme_undrawn_candidate_gives_finite_loss_and_gradients():
     """tests/test_pallas.py:149: an undrawn candidate scoring far above
     lse (q . cand[0] = 1600) must not turn into 0 * inf."""
@@ -202,3 +224,24 @@ def test_kernel_matches_plain_version_on_the_card():
         ref_loss, ref_lse = nl.shared_ce_loss_reference(*inputs)
         torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 8, 129, 520])
+@pytest.mark.parametrize("B", [1, 129, 1000])
+@pytest.mark.parametrize("D", [128, 37])
+def test_kernel_edges_match_plain_version_on_the_card(B, N, D):
+    """The kernel at its edges on the card, one launch a call, the loss
+    bit-identical from call to call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = [torch.tensor(x, device="cuda")
+              for x in make_inputs(B, N, D, seed=B + N + D)]
+    before = nl.shared_ce_loss.launches
+    loss, lse = nl.shared_ce_forward(*inputs)
+    assert nl.shared_ce_loss.launches == before + 1
+    ref_loss, ref_lse = nl.shared_ce_loss_reference(*inputs)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+    assert float(nl.shared_ce_forward(*inputs)[0]) == float(loss)

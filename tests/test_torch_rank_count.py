@@ -72,6 +72,39 @@ def test_rank_counts_equal_jax(B, C, D):
     assert (t[::2] >= 2).all()
 
 
+# the kernel's tile edges: B around its 112- and 128-row tiles, a ragged
+# last candidate tile (1001 = 7 * 128 + 105), D = 37 (its 4-byte copies)
+# and D = 416 (too deep for a resident q tile: the shape that carries q
+# in its ring)
+@pytest.mark.parametrize("B,C,D", [
+    (1, 1001, 16), (127, 1001, 16), (128, 1001, 16), (129, 1001, 16),
+    (256, 1001, 16), (100, 1001, 37), (129, 300, 416),
+])
+def test_rank_counts_tile_edges_equal_jax(B, C, D):
+    q, cand, true, valid = _inputs(B, C, D, seed=B + C + D)
+    r, t = _port(q, cand, true, valid)
+    r_ref, t_ref = _jax(q, cand, true, valid)
+    np.testing.assert_array_equal(r, r_ref)
+    np.testing.assert_array_equal(t, t_ref)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rank_counts_leading_row_view_equal_jax(offset):
+    """cand as the leading rows of a longer table (the eval reads the
+    embedding table in place), at its start and one float past it."""
+    q, cand, true, valid = _inputs(37, 1001, 16, seed=7)
+    flat = torch.zeros(offset + cand.size + 5 * 16)
+    flat[offset:offset + cand.size] = torch.from_numpy(cand).flatten()
+    view = flat[offset:offset + cand.size].view(cand.shape)
+    assert view.is_contiguous()
+    assert view.data_ptr() - flat.data_ptr() == 4 * offset
+    r, t = rank_counts(torch.from_numpy(q), view, torch.from_numpy(true),
+                       torch.from_numpy(valid))
+    r_ref, t_ref = _jax(q, cand, true, valid)
+    np.testing.assert_array_equal(r.numpy(), r_ref)
+    np.testing.assert_array_equal(t.numpy(), t_ref)
+
+
 def test_rank_counts_tie_tolerances():
     """The boundary case of tests/test_pallas.py: 1.5 is greater; 1.0 and
     1.0+5e-6 tie; 0.5 is below."""
@@ -163,5 +196,36 @@ def test_rank_count_kernel_matches_reference_on_card():
     before = rank_counts.launches
     r, t = rank_counts(q, cand, true, valid)
     assert rank_counts.launches == before + 1
+    r_ref, t_ref = rank_counts_reference(q, cand, true, valid)
+    assert torch.equal(r, r_ref) and torch.equal(t, t_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,D,offset", [
+    (1, 14541, 128, 0), (127, 14541, 128, 0), (128, 14541, 128, 0),
+    (129, 14541, 128, 0), (256, 14541, 128, 0), (100, 14541, 37, 0),
+    (300, 14541, 37, 0), (100, 14541, 416, 0), (300, 14541, 416, 0),
+    (100, 14541, 128, 1), (300, 14541, 128, 1), (127, 20000, 128, 0),
+    (128, 20000, 128, 0), (129, 20000, 128, 0),
+])
+def test_rank_count_kernel_tile_edges_on_card(B, C, D, offset):
+    """The kernel's edges on the card, in both of its shapes. At 14,541
+    candidates B <= 129 takes the narrow one (112-row tiles) and 256 and
+    300 the wide one; at 20,000 candidates B = 127, 128 and 129 take the
+    wide one (128-row tiles). Also a ragged candidate tile, D = 37, D = 416
+    (too deep for the wide shape's resident q tile, so the narrow one at
+    any B), and (offset 1) cand 4 bytes past a 16-byte boundary, which
+    takes the 4-byte copies.
+    Counts equal the plain version's on these inputs (no pair at the tie
+    boundary)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, cand, true, valid = (torch.from_numpy(x).cuda()
+                            for x in _inputs(B, C, D, seed=B + D))
+    flat = torch.zeros(offset + C * D, device="cuda")
+    flat[offset:] = cand.flatten()
+    cand = flat[offset:].view(C, D)
+    r, t = rank_counts(q, cand, true, valid)
     r_ref, t_ref = rank_counts_reference(q, cand, true, valid)
     assert torch.equal(r, r_ref) and torch.equal(t, t_ref)
