@@ -25,8 +25,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Times are medians over CUDA-event-timed runs after warm-up; beside them
    the device time of a call (torch.profiler), the host time to enqueue
    one, and the device time of ``torch.matmul(q, cand.T)``; at the
-   Wikidata5M table the time of a call at B = 1024 and B = 256, each with
-   its bound;
+   Wikidata5M table the time, device time and host time of a call at
+   B = 1024 and B = 256, each with its bound, its plain version's time and
+   the time of ``torch.matmul(q, cand.T)`` into one preallocated [B, C]
+   buffer;
 4. eval phase: a synthetic dataset with FB15k-237's sizes (14,541
    entities, 237 relations, 272,115 / 17,535 / 20,466 triples, skewed
    degrees) and a ComplEx dim-128 checkpoint with seeded random weights
@@ -59,26 +61,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    this size ``tpu.sparse_updates: auto`` keeps the tables dense: K3 must
    not launch;
 7. K3 kernel phase (run before the eval phase): ``adagrad_row_update``
-   and ``sgd_row_update`` (``csrc/row_update.cu``) against their plain
-   versions on the card, at the Wikidata5M training shape (a [4,818,680,
-   128] table and sum, 2,306 sorted distinct ids spread over it, 0 and
-   V-1 among them), at the relation shape (832 rows, all touched) and on
-   constructed cases (a run of equal ids with its gradient at the last
-   position, zero-gradient rows, a NaN gradient element): table and sum
-   bit for bit (at most 1 ulp, with the count printed), every untouched
-   row unchanged; times at the entity shape;
+   and ``sgd_row_update`` (``csrc/row_update.cu``, one-table calls) and
+   ``row_update_groups`` (several tables in one launch) against their
+   plain versions on the card, at the Wikidata5M training shape (a
+   [4,818,680, 128] table and sum, 2,306 sorted distinct ids spread over
+   it, 0 and V-1 among them; int64 and int32 ids), at the relation shape
+   (832 rows, all touched), a training step's two tables in one launch,
+   on constructed cases (a run of equal ids with its gradient at the last
+   position, zero-gradient rows, a NaN gradient element) and at the
+   kernel's edges (R in {1, 2, 3, 5, 33, 257, 1031, 4099}, runs of equal
+   ids of lengths 2-9 and 40 across warps and blocks, D = 37, leading-row
+   views 16-byte aligned and not, four groups in one launch): table and
+   sum bit for bit (at most 1 ulp, with the count printed), every
+   untouched row unchanged; then at the entity shape, the relation shape
+   and the two-table step the time of a call, its device and host time,
+   and for SGD ``index_add_``'s (one a table), each with its bound; each
+   call must be one launch;
 8. SGD phase: one epoch of plain SGD with row-sparse updates
-   (``tpu.sparse_updates always``) on the FB15k-237-size graph, 2 K3 SGD
-   launches a step (532), against the same epoch with dense SGD on the
-   card (first batch within 1e-6 relative, epoch within 1e-5);
+   (``tpu.sparse_updates always``) on the FB15k-237-size graph, one K3
+   SGD launch a step for both tables (266), against the same epoch with
+   dense SGD on the card (first batch within 1e-6 relative, epoch within
+   1e-5);
 9. Wikidata5M phase, the row-sparse path: a synthetic graph with
    Wikidata5M's sizes (4,818,679 entities, 828 relations, its train split
    cut to 500,000 triples, its 5,163 / 5,133 valid and test triples) and
    ``start`` of ``examples/wikidata5m-complex-train.yaml`` as it is for
    one epoch, then ``valid``: row-sparse updates must be on, K3 Adagrad
-   and K1 launched 978 times each, K2 42 times, the loss finite and the
-   MRR in (0, 1]; ``valid`` again under torch.profiler gives K2's share of
-   the validation's time. From the same ``checkpoint_00000.pt``, one epoch each
+   launched once a step for both tables (489 times), K1 978 times, K2 42
+   times, the loss finite and the MRR in (0, 1]; ``valid`` again under
+   torch.profiler gives K2's share of the validation's time. From the same ``checkpoint_00000.pt``, one epoch each
    row-sparse on the card (profiled), dense on the card and row-sparse
    on the host (plain K1 and K3): first batch within 1e-5 relative and
    epoch within 1e-3. Prints ms per step, triples/s, set-up and
@@ -307,19 +318,29 @@ def kernel_phase(rc, seed, device) -> dict:
     w5m_valid = check_rank_counts(
         rc, f"wikidata5m size B={VALID_BATCH}",
         qw[:VALID_BATCH].contiguous(), cw, tw[:VALID_BATCH].contiguous(), vw)
-    w_plain = cuda_ms(lambda: rc.rank_counts_reference(
-        qw, cw, tw, vw, ATOL, RTOL), reps=3, warmup=1)
     for Bw in (1024, VALID_BATCH):
         qb, tb = qw[:Bw].contiguous(), tw[:Bw].contiguous()
         call_w = lambda: rc.rank_counts(qb, cw, tb, vw, ATOL, RTOL)
         w_ms = cuda_ms(call_w, reps=5, warmup=1)
         w_us = kernel_device_ms(call_w, 3, "rank_count") * 1e3
+        w_host_us = host_us(call_w, reps=5)
+        w_plain = cuda_ms(lambda: rc.rank_counts_reference(
+            qb, cw, tb, vw, ATOL, RTOL), reps=3, warmup=1)
+        # the library call: the whole [B, C] score matrix (19.7 GB at
+        # B = 1024), written into one buffer allocated once
+        scores = torch.empty(Bw, W5M_ENTITIES, device=device)
+        library_w = lambda: torch.matmul(qb, cw.T, out=scores)
+        w_library_ms = cuda_ms(library_w, reps=5, warmup=1)
+        w_library_us = sum(
+            us for us, _ in device_us_by_name(library_w, 3).values())
+        del scores
         w_bound, _, w_flops, w_bytes = rank_bound(Bw, W5M_ENTITIES, D)
         print(f"rank_counts wikidata5m size B={Bw}: kernel_ms {w_ms} "
-              f"kernel_us {w_us} bound_ms {w_bound} (operations; "
-              f"{w_flops / 1e9} GFLOP, {w_bytes / 1e9} GB); share of the "
-              f"bound {w_bound / (w_us / 1e3)}"
-              + (f"; plain_ms {w_plain}" if Bw == 1024 else ""), flush=True)
+              f"kernel_us {w_us} host_us {w_host_us} library_ms (matmul q "
+              f"@ cand.T) {w_library_ms} library_kernel_us {w_library_us} "
+              f"bound_ms {w_bound} (operations; {w_flops / 1e9} GFLOP, "
+              f"{w_bytes / 1e9} GB); share of the bound "
+              f"{w_bound / (w_us / 1e3)}; plain_ms {w_plain}", flush=True)
     del qw, cw, tw, vw
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(main["max_abs_err"], w5m["max_abs_err"],
@@ -730,9 +751,10 @@ def host_us(fn, reps: int = 200) -> float:
 def call_profile(label, fn, library, reps=50) -> dict:
     """kernel_us (the device time of every kernel and memset of one call
     of ``fn``), host_us and library_kernel_us (the device time of
-    ``library``); prints the device time by name."""
+    ``library``, None without one); prints the device time by name."""
     by_name = device_us_by_name(fn, reps)
-    library_us = sum(us for us, _ in device_us_by_name(library, reps).values())
+    library_us = None if library is None else sum(
+        us for us, _ in device_us_by_name(library, reps).values())
     out = dict(kernel_us=sum(us for us, _ in by_name.values()),
                host_us=host_us(fn), library_kernel_us=library_us)
     print(f"{label}: device us per call by name "
@@ -742,84 +764,190 @@ def call_profile(label, fn, library, reps=50) -> dict:
     return dict(out, by_name=by_name)
 
 
-def run_k3(ru, optimizer, inputs, kernel: bool):
-    """One update of fresh copies of ``inputs``: the kernel (the
-    wrapper) or its plain version; returns (table, sum)."""
-    table, ssum, uniq, rows_g = (x.clone() for x in inputs)
-    if optimizer == "adagrad":
-        fn = (ru.adagrad_row_update if kernel
-              else ru.adagrad_row_update_reference)
-        fn(table, ssum, uniq, rows_g, K3_LR, K3_EPS)
+def clone_like(x):
+    """A copy of ``x`` at the same offset from a fresh allocation (so a
+    leading-row view at 4 bytes past 16 stays unaligned)."""
+    offset = x.storage_offset()
+    flat = torch.empty(offset + x.numel(), dtype=x.dtype, device=x.device)
+    y = flat[offset:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def k3_group_args(optimizer, copies):
+    """(table, sum, uniq, rows_g, lr, eps) of each group: the k-th group
+    has its own lr and eps (K3_LR / (k + 1), K3_EPS * (k + 1))."""
+    return [(t, s if optimizer == "adagrad" else None, u, g,
+             K3_LR / (k + 1), K3_EPS * (k + 1))
+            for k, (t, s, u, g) in enumerate(copies)]
+
+
+def run_k3(ru, optimizer, groups, kernel: bool):
+    """One update of fresh copies of each group's inputs: the kernel (one
+    launch for all groups; the one-table wrapper for one group) or its
+    plain version; returns [(table, sum)]."""
+    copies = [[clone_like(x) for x in inputs] for inputs in groups]
+    args = k3_group_args(optimizer, copies)
+    if not kernel:
+        ru.row_update_groups_reference(optimizer, args)
+    elif len(args) > 1:
+        ru.row_update_groups(optimizer, args)
+    elif optimizer == "adagrad":
+        ru.adagrad_row_update(*args[0])
     else:
-        fn = ru.sgd_row_update if kernel else ru.sgd_row_update_reference
-        fn(table, uniq, rows_g, K3_LR)
+        table, _, uniq, rows_g, lr, _ = args[0]
+        ru.sgd_row_update(table, uniq, rows_g, lr)
     torch.cuda.synchronize()
-    return table, ssum
+    return [(t, s) for t, s, _, _ in copies]
 
 
-def check_k3(ru, optimizer, label, inputs) -> int:
-    """Kernel vs plain version: table and sum bit for bit (or within one
-    ulp, with the count printed); every row outside uniq bit-unchanged.
-    Returns the largest ulp distance."""
-    got = run_k3(ru, optimizer, inputs, kernel=True)
-    want = run_k3(ru, optimizer, inputs, kernel=False)
-    table, ssum, uniq, rows_g = inputs
-    touched = torch.zeros(table.shape[0], dtype=torch.bool,
-                          device=table.device)
-    touched[uniq] = True
+def check_k3(ru, optimizer, label, groups) -> int:
+    """Kernel vs plain version, for one table or several in one launch:
+    table and sum bit for bit (or within one ulp, with the count
+    printed); every row outside uniq bit-unchanged. Returns the largest
+    ulp distance."""
+    got_all = run_k3(ru, optimizer, groups, kernel=True)
+    want_all = run_k3(ru, optimizer, groups, kernel=False)
     worst = 0
-    for name, g, w, before in zip(("table", "sum"), got, want,
-                                  (table, ssum)):
-        # the touched rows against the plain version; the others below
-        # against the input (the plain version writes only uniq's rows)
-        ulps = ulp_distance(g[uniq], w[uniq])
-        n_diff, largest = int((ulps > 0).sum()), int(ulps.max())
-        worst = max(worst, largest)
-        if n_diff:
-            print(f"row_update {optimizer} {label}: {name} differs from the "
-                  f"plain version in {n_diff} elements, by at most "
-                  f"{largest} ulp", flush=True)
-        if largest > 1:
-            fail(f"row_update {optimizer} {label}: {name} more than one ulp "
-                 "from the plain version")
-        moved = (g.view(torch.int32) != before.view(torch.int32)).any(dim=1)
-        if bool((moved & ~touched).any()):
-            fail(f"row_update {optimizer} {label}: {name} changed a row "
-                 "outside uniq")
-    nan_rows = torch.isnan(rows_g).any(dim=1)
-    if bool(nan_rows.any()):
-        expect = torch.zeros_like(got[0], dtype=torch.bool)
-        expect[uniq[nan_rows]] = torch.isnan(rows_g[nan_rows])
-        if not torch.equal(torch.isnan(got[0]), expect):
-            fail(f"row_update {optimizer} {label}: a NaN gradient left its "
-                 "element")
-    print(f"row_update {optimizer} {label}: V={table.shape[0]} "
-          f"R={uniq.shape[0]} D={table.shape[1]}: table and sum "
-          f"{'bit-equal to' if worst == 0 else 'within 1 ulp of'} the plain "
-          "version, untouched rows unchanged", flush=True)
+    for k, (inputs, got, want) in enumerate(zip(groups, got_all, want_all)):
+        table, ssum, uniq, rows_g = inputs
+        where = f"{label} (group {k})" if len(groups) > 1 else label
+        touched = torch.zeros(table.shape[0], dtype=torch.bool,
+                              device=table.device)
+        touched[uniq] = True
+        for name, g, w, before in zip(("table", "sum"), got, want,
+                                      (table, ssum)):
+            # the touched rows against the plain version; the others
+            # against the input (the plain version writes only uniq's rows)
+            ulps = ulp_distance(g[uniq], w[uniq])
+            n_diff = int((ulps > 0).sum())
+            largest = int(ulps.max()) if ulps.numel() else 0
+            worst = max(worst, largest)
+            if n_diff:
+                print(f"row_update {optimizer} {where}: {name} differs from "
+                      f"the plain version in {n_diff} elements, by at most "
+                      f"{largest} ulp", flush=True)
+            if largest > 1:
+                fail(f"row_update {optimizer} {where}: {name} more than one "
+                     "ulp from the plain version")
+            moved = (g.view(torch.int32) != before.view(torch.int32)).any(
+                dim=1)
+            if bool((moved & ~touched).any()):
+                fail(f"row_update {optimizer} {where}: {name} changed a row "
+                     "outside uniq")
+        nan_rows = torch.isnan(rows_g).any(dim=1)
+        if bool(nan_rows.any()):
+            expect = torch.zeros_like(got[0], dtype=torch.bool)
+            expect[uniq[nan_rows]] = torch.isnan(rows_g[nan_rows])
+            if not torch.equal(torch.isnan(got[0]), expect):
+                fail(f"row_update {optimizer} {where}: a NaN gradient left "
+                     "its element")
+    shapes = ", ".join(
+        f"V={t.shape[0]} R={u.shape[0]} D={t.shape[1]} {u.dtype} "
+        f"{'16-byte aligned' if t.data_ptr() % 16 == 0 else 'unaligned'}"
+        for t, _, u, _ in groups)
+    print(f"row_update {optimizer} {label}: {len(groups)} group(s) [{shapes}]"
+          f": table and sum {'bit-equal to' if worst == 0 else 'within 1 ulp of'}"
+          " the plain version, untouched rows unchanged", flush=True)
     return worst
 
 
+def k3_runs(V, R, D, seed, device):
+    """Inputs whose ids come in runs of equal ids of lengths 2-9 and one
+    of 40, each carrying its gradient at its last position: at one
+    position a warp and 8 warps a block, runs cross warp and block
+    boundaries."""
+    table, ssum, _, rows_g = make_k3_inputs(V, R, D, seed, device)
+    lengths = [2 + i % 8 for i in range(R)]
+    lengths[3] = 40
+    reps = torch.tensor(lengths, device=device)
+    reps = reps[:int((reps.cumsum(0) <= R).sum())]
+    distinct = make_k3_inputs(V, len(reps), D, seed + 1, device)[2]
+    uniq = torch.repeat_interleave(distinct, reps)
+    rows_g = rows_g[:len(uniq)].clone()
+    last = torch.ones(len(uniq), dtype=torch.bool, device=device)
+    last[:-1] = uniq[1:] != uniq[:-1]
+    rows_g[~last] = 0.0
+    return [table, ssum, uniq.contiguous(), rows_g]
+
+
+def k3_edge_cases(seed, device):
+    """[(label, groups)]: position counts that are no multiple of a warp
+    task or a block, runs of equal ids across warps and blocks, D = 37
+    (one element a lane), leading-row views 16-byte aligned and not, int32
+    ids and a launch of four groups."""
+    V, D = 65536, DIM
+    table, ssum, uniq, rows_g = make_k3_inputs(V, 2, D, seed, device)
+    one_row = [table, ssum, uniq[:1], rows_g[:1]]
+    cases = [("R=1", [one_row])]
+    cases += [(f"R={R}", [make_k3_inputs(V, R, D, seed + R, device)])
+              for R in (2, 3, 5, 33, 257, 1031, 4099)]
+    cases.append(("runs of equal ids across warps and blocks",
+                  [k3_runs(V, 3000, D, seed + 3, device)]))
+    cases.append(("D=37 (one element a lane)",
+                  [make_k3_inputs(V, 3001, 37, seed + 4, device)]))
+    for offset, what in ((0, "16-byte aligned"), (1, "at 4 bytes past 16")):
+        table, ssum, uniq, rows_g = make_k3_inputs(V + 8, 2306, D, seed + 5,
+                                                   device)
+        uniq = uniq[uniq < V].contiguous()
+        rows_g = rows_g[:len(uniq)].contiguous()
+        views = []
+        for x in (table, ssum):
+            flat = torch.empty(x.numel() + offset, device=device)
+            flat[offset:] = x.flatten()
+            views.append(flat[offset:offset + V * D].view(V, D))
+        cases.append((f"leading-row view, {what}",
+                      [[views[0], views[1], uniq, rows_g]]))
+    cases.append(("four groups, int32 and int64 ids", [
+        make_k3_inputs(V, 2306, D, seed + 6, device),
+        [*make_k3_inputs(W5M_RELATION_ROWS, W5M_RELATION_ROWS, D, seed + 7,
+                         device)[:2],
+         torch.arange(W5M_RELATION_ROWS, device=device, dtype=torch.int32),
+         torch.randn(W5M_RELATION_ROWS, D, device=device)],
+        k3_runs(4096, 500, 37, seed + 8, device),
+        one_row]))
+    return cases
+
+
+def k3_bound(optimizer, rows, D):
+    """(bound_ms, bytes) of one update of ``rows`` touched rows: the
+    gradient, table and (Adagrad) sum rows read, the table and sum rows
+    written, an 8-byte id; 7 (Adagrad) or 2 (SGD) flops an element."""
+    moved = 4.0 * ((5 if optimizer == "adagrad" else 3) * rows * D) + 8.0 * rows
+    flops = (7 if optimizer == "adagrad" else 2) * rows * D
+    return max(moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3, moved
+
+
 def k3_phase(ru, seed, device) -> dict:
-    """K3 on the card: the Wikidata5M entity shape, the relation shape
-    and constructed cases, Adagrad and SGD; then times at the entity
-    shape, each launch on another 2,306 rows (20 sets: 118 MB, beyond the
-    50 MB L2, as a training step finds the sum rows)."""
+    """K3 on the card: the Wikidata5M entity shape (int64 and int32 ids),
+    the relation shape, a training step's two tables in one launch,
+    constructed cases and the kernel's edges, Adagrad and SGD; then times
+    at the entity shape, the relation shape and the two-table step, each
+    launch on another 2,306 entity rows (20 sets: 118 MB, beyond the 50 MB
+    L2, as a training step finds the sum rows)."""
     D = DIM
     V = W5M_ENTITIES + 1  # padded to a multiple of 8
     main = make_k3_inputs(V, W5M_ENTITY_ROWS, D, seed, device)
     relations = make_k3_inputs(W5M_RELATION_ROWS, W5M_RELATION_ROWS, D,
                                seed + 1, device)
-    special = constructed_k3_inputs(main)
+    cases = [
+        ("wikidata5m entity shape", [main]),
+        ("relation shape", [relations]),
+        ("constructed cases", [constructed_k3_inputs(main)]),
+        ("wikidata5m entity shape, int32 ids",
+         [main[:2] + [main[2].int(), main[3]]]),
+        ("training step: entity and relation tables in one launch",
+         [main, relations]),
+        *k3_edge_cases(seed, device),
+    ]
     out = {}
     for optimizer in ("adagrad", "sgd"):
-        err = check_k3(ru, optimizer, "wikidata5m entity shape", main)
-        err = max(err, check_k3(ru, optimizer, "relation shape", relations))
-        err = max(err, check_k3(ru, optimizer, "constructed cases", special))
-        out[optimizer] = dict(max_abs_err=err)
-    del special, relations
+        out[optimizer] = dict(max_abs_err=max(
+            check_k3(ru, optimizer, label, groups) for label, groups in cases))
+    del cases
 
     table, ssum, _, rows_g = main
+    rel_table, rel_sum, rel_uniq, rel_g = relations
     R = W5M_ENTITY_ROWS
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     id_sets = [torch.sort(torch.randperm(V, generator=gen, device=device)[:R]
@@ -829,35 +957,77 @@ def k3_phase(ru, seed, device) -> dict:
         sets = itertools.cycle(id_sets)
         return lambda: fn(next(sets))
 
-    times = {
-        "adagrad": (
-            lambda u: ru.adagrad_row_update(table, ssum, u, rows_g, K3_LR,
-                                            K3_EPS),
-            lambda u: ru.adagrad_row_update_reference(table, ssum, u, rows_g,
-                                                      K3_LR, K3_EPS),
-            None),
-        "sgd": (
-            lambda u: ru.sgd_row_update(table, u, rows_g, K3_LR),
-            lambda u: ru.sgd_row_update_reference(table, u, rows_g, K3_LR),
-            lambda u: table.index_add_(0, u, rows_g, alpha=-K3_LR)),
-    }
-    for optimizer, (kernel, plain, library) in times.items():
-        moved = 4.0 * ((5 if optimizer == "adagrad" else 3) * R * D) + 8.0 * R
-        flops = (7 if optimizer == "adagrad" else 2) * R * D
-        bound_ms = max(moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3
-        ms = cuda_ms(cycling(kernel), reps=200)
-        plain_ms = cuda_ms(cycling(plain), reps=100)
-        library_ms = (cuda_ms(cycling(library), reps=200)
-                      if library is not None else None)
-        device_ms = kernel_device_ms(cycling(kernel), 200, f"{optimizer}_rows")
-        print(f"row_update {optimizer} wikidata5m entity shape (R={R}, "
-              f"D={D}, V={V}): kernel_ms {ms} (device time of the kernel "
-              f"alone {device_ms}) plain_ms {plain_ms} library_ms "
-              f"{library_ms} bound_ms {bound_ms} (bytes; {moved / 1e6} MB)",
-              flush=True)
-        out[optimizer].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by="bytes", library_ms=library_ms)
-    del main, table, ssum, rows_g, id_sets
+    for optimizer in ("adagrad", "sgd"):
+        adagrad = optimizer == "adagrad"
+
+        def groups(u):
+            return [(table, ssum if adagrad else None, u, rows_g, K3_LR,
+                     K3_EPS),
+                    (rel_table, rel_sum if adagrad else None, rel_uniq,
+                     rel_g, K3_LR, K3_EPS)]
+
+        def one_table(group):
+            t, s, u, g, lr, eps = group
+            if adagrad:
+                ru.adagrad_row_update(t, s, u, g, lr, eps)
+            else:
+                ru.sgd_row_update(t, u, g, lr)
+
+        def library(group):
+            t, _, u, g, lr, _ = group
+            t.index_add_(0, u, g, alpha=-lr)
+
+        # (key, label, rows, kernel, plain, library): one wrapper call on the
+        # entity table, on the relation table, and the step's one launch
+        # for both
+        shapes = [
+            ("entity", f"wikidata5m entity shape (R={R}, D={D}, V={V})", R,
+             lambda u: one_table(groups(u)[0]),
+             lambda u: ru.row_update_groups_reference(optimizer,
+                                                      groups(u)[:1]),
+             lambda u: library(groups(u)[0])),
+            ("relation", f"relation shape (R={W5M_RELATION_ROWS}, D={D})",
+             W5M_RELATION_ROWS,
+             lambda u: one_table(groups(u)[1]),
+             lambda u: ru.row_update_groups_reference(optimizer,
+                                                      groups(u)[1:]),
+             lambda u: library(groups(u)[1])),
+            ("step", "training step, both tables in one launch "
+             f"(R={R} + {W5M_RELATION_ROWS})", R + W5M_RELATION_ROWS,
+             lambda u: ru.row_update_groups(optimizer, groups(u)),
+             lambda u: ru.row_update_groups_reference(optimizer, groups(u)),
+             lambda u: [library(g) for g in groups(u)]),
+        ]
+        for key, label, rows, kernel, plain, lib in shapes:
+            label = f"row_update {optimizer} {label}"
+            bound_ms, moved = k3_bound(optimizer, rows, D)
+            ms = cuda_ms(cycling(kernel), reps=200)
+            plain_ms = cuda_ms(cycling(plain), reps=100)
+            # one PyTorch call computes SGD's update (index_add_ per
+            # table); none computes Adagrad's
+            library_ms = None if adagrad else cuda_ms(cycling(lib), reps=200)
+            prof = call_profile(label, cycling(kernel),
+                                None if adagrad else cycling(lib))
+            launches = sum(n for name, (_, n) in prof["by_name"].items()
+                           if f"{optimizer}_rows" in name)
+            if launches != 1:
+                fail(f"{label}: {launches} kernel launches a call, expected 1")
+            print(f"{label}: kernel_ms {ms} kernel_us {prof['kernel_us']} "
+                  f"host_us {prof['host_us']} plain_ms {plain_ms} library_ms "
+                  f"{library_ms} library_kernel_us "
+                  f"{prof['library_kernel_us']} bound_ms {bound_ms} (bytes; "
+                  f"{moved / 1e6} MB); share of the bound "
+                  f"{bound_ms * 1e3 / prof['kernel_us']}", flush=True)
+            numbers = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", library_ms=library_ms,
+                           kernel_us=prof["kernel_us"],
+                           host_us=prof["host_us"],
+                           library_kernel_us=prof["library_kernel_us"])
+            if key == "entity":  # the main path's shape
+                out[optimizer].update(numbers)
+            else:
+                out[optimizer][key] = numbers
+    del main, relations, table, ssum, rows_g, id_sets
     torch.cuda.empty_cache()
     return out
 
@@ -1083,7 +1253,7 @@ def sgd_phase(kernels, scratch, config_file) -> dict:
         sparse=sparse, dense=dense, first_batch_relative_difference=first_rel,
         epoch_avg_loss_relative_difference=epoch_rel)), flush=True)
     expect_counts("the row-sparse SGD epoch", sparse["launches"],
-                  dict(sgd_row_update=2 * TRAIN_STEPS, adagrad_row_update=0,
+                  dict(sgd_row_update=TRAIN_STEPS, adagrad_row_update=0,
                        shared_ce_loss=2 * TRAIN_STEPS))
     expect_counts("the dense SGD epoch", dense["launches"],
                   dict(sgd_row_update=0, adagrad_row_update=0))
@@ -1182,7 +1352,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         if not sparse_logged:
             fail("the Wikidata5M-size run did not use row-sparse updates")
         expect_counts("the Wikidata5M-size epoch", start_counts, dict(
-            adagrad_row_update=2 * W5M_STEPS, sgd_row_update=0,
+            adagrad_row_update=W5M_STEPS, sgd_row_update=0,
             shared_ce_loss=2 * W5M_STEPS, rank_counts=0))
         expect_counts("the Wikidata5M-size validation", valid_counts, dict(
             rank_counts=2 * math.ceil(WIKIDATA5M["splits"]["valid"]
@@ -1261,7 +1431,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
     card, dense, host = (runs[k] for k in
                          ("sparse-card", "dense-card", "sparse-host"))
     expect_counts("the profiled sparse epoch", card["launches"],
-                  dict(adagrad_row_update=2 * W5M_STEPS))
+                  dict(adagrad_row_update=W5M_STEPS))
     expect_counts("the dense epoch", dense["launches"],
                   dict(adagrad_row_update=0, shared_ce_loss=2 * W5M_STEPS))
     expect_counts("the host epoch", host["launches"],

@@ -1,4 +1,4 @@
-// Row-sparse Adagrad and SGD updates of an embedding table, in place, for
+// Row-sparse Adagrad and SGD updates of embedding tables, in place, for
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernels kge_tpu/ops/pallas/row_update.py:_adagrad_kernel
@@ -11,15 +11,22 @@
 //             table[id] = table[id] + (-lr * u)
 //   SGD:      table[id] = table[id] + (-lr * g)
 //
-// Rows that uniq does not name are neither read nor written.
+// Rows that uniq does not name are not written.
+//
+// Groups. One launch updates up to MAX_GROUPS tables (a training step's
+// entity and relation tables), each a group (table, sum, uniq, g, R, D,
+// index width, -lr, eps) of its own, passed by value in one
+// __grid_constant__ parameter struct. The positions of all groups are laid
+// end to end; a warp finds its group from the prefix offsets in the struct.
 //
 // Duplicates. uniq is sorted; a run of equal ids carries its gradient only
 // at its last position (the caller's contract: the batch payload remaps
-// with searchsorted(side="right") - 1). A position whose successor holds
-// the same id writes nothing, and the last position of the run computes
-// from the row as it was before the update: the result of the reference's
-// scatter-add, whose other positions add exactly zero. On the training
-// path uniq holds distinct ids, so the rule never fires there.
+// with searchsorted(side="right") - 1). A position whose successor in its
+// own group holds the same id writes nothing, and the last position of the
+// run computes from the row as it was before the update: the result of the
+// reference's scatter-add, whose other positions add exactly zero. The
+// successor is read from memory, so a run may cross warps and blocks. On
+// the training path uniq holds distinct ids, so the rule never fires there.
 //
 // Rounding. Every operation is a rounded intrinsic (__fmul_rn, __fadd_rn,
 // __fsqrt_rn, __fdiv_rn), so nvcc contracts nothing into an FMA, and the
@@ -29,41 +36,84 @@
 // operations. Ids are not range-checked here; the host payload keeps them
 // inside the table.
 //
-// Design. The Pallas kernel walks a sequential grid, one touched row per
-// step, anchoring an 8-row block at uniq[i] // 8 and copying the whole
-// block on the first visit of a run: that exists only for Mosaic's (8, 128)
-// tiling and its revisit rule, and is dropped. Here one warp owns one
-// position of uniq; its lanes stride over the row's D elements, four at a
-// time as float4 where D % 4 == 0 and the three arrays are 16-byte aligned,
-// one at a time otherwise. A block holds 8 warps. Positions are
-// independent: nothing carries over between blocks and there are no
-// atomics.
+// What bounds it on an H100 SXM. Per touched row the update reads the
+// gradient, the table row and for Adagrad the sum row, writes the table
+// and sum rows back, and reads the id: 4*(5*R*D) + 8*R bytes for Adagrad,
+// 4*(3*R*D) + 8*R for SGD, a few flops per element. At the Wikidata5M
+// training step (entity R = 2,306 and relation R = 832, D = 128) that is
+// 5.92 + 2.14 MB for Adagrad, 1.77 + 0.64 us at 3.35 TB/s: bytes bound it,
+// and at microseconds of work so do latency and the launch.
 //
-// What bounds it on an H100 SXM. The update moves, per touched row, the
-// gradient (read), the table row (read, write) and for Adagrad the sum row
-// (read, write), plus the id: 4*(5*R*D) + 8*R bytes for Adagrad, 4*(3*R*D)
-// + 8*R for SGD. At the Wikidata5M training shape (R = 2,306, D = 128) that
-// is 5.92 MB, 1.77 us at 3.35 TB/s; at the relation table (R = 832) 2.14 MB,
-// 0.64 us. Bytes bound it, a few flops per element; at microseconds of work
-// the launch itself dominates. Each warp issues its row's loads together
-// (one 512-byte row per array, coalesced), and 290 blocks cover the 132 SMs
-// at that shape.
+// What held the first design back (one warp per position, 8 warps a
+// block, one launch and one host call per table; NVIDIA H100 80GB HBM3 at
+// 700 W): Adagrad took 3.9-4.0 us of device time a launch at the entity
+// shape against its 1.77 us bound, SGD 2.1 us against 1.06 us; a
+// training step paid two launches (5.6-5.7 us for Adagrad's two tables)
+// and two wrapper calls of 33-52 us of host time each, more than torch's
+// index_add_ for SGD. Each warp reads its id and its successor before it
+// can address its rows: two round trips in series, which none of the
+// schedules measured below avoided.
+//
+// This design:
+// - one launch for every table of a step (the groups above): one launch
+//   and one host call instead of two, and the relation table's 832 rows
+//   run beside the entity table's 2,306 in the same wave;
+// - one wave of blocks: the host sizes the grid from the SM count and the
+//   kernel's resident blocks an SM (each read once), one warp a position;
+//   past one wave a warp loops to the next position a grid's worth on;
+// - lane 0 reads the position's id and lane 1 its successor in one load;
+//   then the warp issues its gradient, table and sum row loads together;
+// - float4 lanes where D % 4 == 0 and the rows are 16-byte aligned, one
+//   element a lane otherwise (any D, any row alignment).
+//
+// What was measured against it (one call, the same card): an empty launch
+// of this kernel takes 0.93-1.0 us of device time, so the id round trip,
+// the row round trip, the 5.9 MB of traffic and the Adagrad arithmetic
+// share about 3 us: latency, not bandwidth, bounds one table, and the old
+// and the new schedule land within a few percent of each other there
+// (3.9 and 4.1 us). What the grouping saves is the second launch (4.1 us
+// for both tables against 5.6). Variants that measured slower: 2 or 4
+// positions a warp, their ids in one coalesced load and all their row
+// loads issued before the first store (more registers, fewer resident
+// blocks: up to +0.9 us at this step, +1.6 us at a batch of 4,096),
+// the gradient row issued before the ids arrive (+0.08 us for SGD, the
+// same for Adagrad), ld.global.nc.L1::no_allocate for the gradient rows
+// (+0.2 us), selecting the group by static indices (+0.15 us), 128-,
+// 512- and 1024-thread blocks (up to +0.3 us); a parameter struct of 2
+// groups instead of 4 changed nothing. Programmatic dependent launch was
+// not tried: the host enqueues this kernel 13-35 us after it enqueued the
+// kernel before it, longer than that kernel runs, so there is no tail to
+// overlap on the training path or in a loop of wrapper calls.
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include <algorithm>
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps, one position of uniq each
+constexpr int MAX_GROUPS = 4;
+constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_DEVICES = 64;
 
-template <typename Index>
-__device__ __forceinline__ bool writes(const Index* uniq, long long i,
-                                       long long R) {
-  // only the last position of a run of equal ids writes
-  return i + 1 >= R || uniq[i + 1] != uniq[i];
-}
+struct Group {
+  float* table;
+  float* sum;         // Adagrad's accumulator; unused by SGD
+  const void* uniq;   // int32 or int64 ids
+  const float* g;
+  long long R;
+  long long first;  // the group's first position, all groups end to end
+  int D;
+  int wide_ids;  // 1: int64 ids, 0: int32
+  int vec;       // 1: float4 lanes
+  float neg_lr;
+  float eps;
+};
+
+struct Params {
+  Group group[MAX_GROUPS];  // unused ones start at `positions`
+  long long positions;      // of all groups; one warp each
+};
 
 __device__ __forceinline__ void adagrad(float& t, float& s, float g,
                                         float neg_lr, float eps) {
@@ -77,141 +127,179 @@ __device__ __forceinline__ void sgd(float& t, float g, float neg_lr) {
   t = __fadd_rn(t, __fmul_rn(neg_lr, g));
 }
 
-template <typename Index, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-adagrad_rows(float* __restrict__ table, float* __restrict__ sum,
-             const Index* __restrict__ uniq, const float* __restrict__ g,
-             long long R, int D, float neg_lr, float eps) {
-  const long long i = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (i >= R || !writes(uniq, i, R)) return;
-  const long long row = (long long)uniq[i] * D;
-  float* t = table + row;
-  float* s = sum + row;
-  const float* gr = g + i * D;
-  if (VEC) {
-    float4* t4 = reinterpret_cast<float4*>(t);
-    float4* s4 = reinterpret_cast<float4*>(s);
-    const float4* g4 = reinterpret_cast<const float4*>(gr);
-    for (int k = lane; k < D / 4; k += 32) {
-      const float4 gv = g4[k];
-      float4 sv = s4[k];
-      float4 tv = t4[k];
-      adagrad(tv.x, sv.x, gv.x, neg_lr, eps);
-      adagrad(tv.y, sv.y, gv.y, neg_lr, eps);
-      adagrad(tv.z, sv.z, gv.z, neg_lr, eps);
-      adagrad(tv.w, sv.w, gv.w, neg_lr, eps);
-      s4[k] = sv;
-      t4[k] = tv;
+__device__ __forceinline__ void update(float4& t, float4& s, float4 g,
+                                       float neg_lr, float eps) {
+  adagrad(t.x, s.x, g.x, neg_lr, eps);
+  adagrad(t.y, s.y, g.y, neg_lr, eps);
+  adagrad(t.z, s.z, g.z, neg_lr, eps);
+  adagrad(t.w, s.w, g.w, neg_lr, eps);
+}
+
+__device__ __forceinline__ void update(float& t, float& s, float g,
+                                       float neg_lr, float eps) {
+  adagrad(t, s, g, neg_lr, eps);
+}
+
+__device__ __forceinline__ void update(float4& t, float4 g, float neg_lr) {
+  sgd(t.x, g.x, neg_lr);
+  sgd(t.y, g.y, neg_lr);
+  sgd(t.z, g.z, neg_lr);
+  sgd(t.w, g.w, neg_lr);
+}
+
+__device__ __forceinline__ void update(float& t, float g, float neg_lr) {
+  sgd(t, g, neg_lr);
+}
+
+// Row `id` of group gr from the gradient row of position i. V is float4
+// (W = 4 floats a lane) or float (W = 1).
+template <bool ADAGRAD, typename V>
+__device__ __forceinline__ void update_row(const Group& gr, long long i,
+                                           long long id, int lane) {
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int cols = gr.D / W;  // D % W == 0 where W == 4
+  const V* g = reinterpret_cast<const V*>(gr.g) + i * cols;
+  V* table = reinterpret_cast<V*>(gr.table);
+  V* sum = reinterpret_cast<V*>(gr.sum);
+  for (int c = lane; c < cols; c += 32) {
+    const long long k = id * cols + c;
+    const V gv = g[c];
+    V tv = table[k];
+    if (ADAGRAD) {
+      V sv = sum[k];
+      update(tv, sv, gv, gr.neg_lr, gr.eps);
+      sum[k] = sv;
+    } else {
+      update(tv, gv, gr.neg_lr);
     }
-  } else {
-    for (int k = lane; k < D; k += 32) {
-      float sv = s[k], tv = t[k];
-      adagrad(tv, sv, gr[k], neg_lr, eps);
-      s[k] = sv;
-      t[k] = tv;
-    }
+    table[k] = tv;
   }
 }
 
-template <typename Index, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-sgd_rows(float* __restrict__ table, const Index* __restrict__ uniq,
-         const float* __restrict__ g, long long R, int D, float neg_lr) {
-  const long long i = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+// One warp a position; past one wave of blocks a warp takes the next
+// position a grid's worth of warps on.
+template <bool ADAGRAD>
+__device__ __forceinline__ void update_rows(const Params& p) {
   const int lane = threadIdx.x & 31;
-  if (i >= R || !writes(uniq, i, R)) return;
-  float* t = table + (long long)uniq[i] * D;
-  const float* gr = g + i * D;
-  if (VEC) {
-    float4* t4 = reinterpret_cast<float4*>(t);
-    const float4* g4 = reinterpret_cast<const float4*>(gr);
-    for (int k = lane; k < D / 4; k += 32) {
-      const float4 gv = g4[k];
-      float4 tv = t4[k];
-      sgd(tv.x, gv.x, neg_lr);
-      sgd(tv.y, gv.y, neg_lr);
-      sgd(tv.z, gv.z, neg_lr);
-      sgd(tv.w, gv.w, neg_lr);
-      t4[k] = tv;
+  const long long stride = (long long)gridDim.x * WARPS;
+  for (long long at = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+       at < p.positions; at += stride) {
+    int k = 0;
+    while (k + 1 < MAX_GROUPS && at >= p.group[k + 1].first) ++k;
+    const Group& gr = p.group[k];
+    const long long i = at - gr.first;
+    // lane 0 reads the position's id, lane 1 its successor in the group
+    // (-1 past the group's end), in one load
+    long long id = -1;
+    if (lane < 2 && i + lane < gr.R) {
+      id = gr.wide_ids
+               ? static_cast<const long long*>(gr.uniq)[i + lane]
+               : (long long)static_cast<const int*>(gr.uniq)[i + lane];
     }
-  } else {
-    for (int k = lane; k < D; k += 32) {
-      float tv = t[k];
-      sgd(tv, gr[k], neg_lr);
-      t[k] = tv;
-    }
+    const long long here = __shfl_sync(0xffffffffu, id, 0);
+    // only the last position of a run of equal ids writes
+    if (__shfl_sync(0xffffffffu, id, 1) == here) continue;
+    if (gr.vec)
+      update_row<ADAGRAD, float4>(gr, i, here, lane);
+    else
+      update_row<ADAGRAD, float>(gr, i, here, lane);
   }
 }
 
-bool vectorizable(int D, const void* a, const void* b, const void* c) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(b) |
-                         reinterpret_cast<uintptr_t>(c);
-  return D % 4 == 0 && bits % 16 == 0;
+__global__ void __launch_bounds__(THREADS)
+adagrad_rows(const __grid_constant__ Params p) {
+  update_rows<true>(p);
 }
 
-unsigned blocks(long long R) { return (unsigned)((R + WARPS - 1) / WARPS); }
+__global__ void __launch_bounds__(THREADS)
+sgd_rows(const __grid_constant__ Params p) {
+  update_rows<false>(p);
+}
+
+// resident blocks an SM of each kernel, read once (its registers bound it)
+int blocks_per_sm(bool adagrad) {
+  static int counts[2];
+  int& n = counts[adagrad];
+  if (n == 0) {
+    if (adagrad)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, adagrad_rows,
+                                                    THREADS, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sgd_rows, THREADS, 0);
+    if (n < 1) n = 1;
+  }
+  return n;
+}
+
+// SMs of `device`, read once for each of the first MAX_DEVICES devices
+int sm_count(int device) {
+  static int counts[MAX_DEVICES];
+  int n = device < MAX_DEVICES ? counts[device] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (n < 1) n = 1;
+    if (device < MAX_DEVICES) counts[device] = n;
+  }
+  return n;
+}
 
 }  // namespace
 
+// One group as the host packs it (Python: struct "<7q2f", 64 bytes).
+struct HostGroup {
+  long long table, sum, uniq, g;  // device pointers; sum unused by SGD
+  long long R, D, index_bytes;    // index_bytes 4 (int32 ids) or 8
+  float neg_lr, eps;
+};
+
 extern "C" {
 
-// In place on table [V, D] and sum [V, D] at the R rows uniq names; g is
-// [R, D], uniq int32 (index_bytes 4) or int64 (8). All float32, contiguous.
-// Returns cudaGetLastError() after the launch (0 on success).
-int kge_adagrad_row_update(float* table, float* sum, const void* uniq,
-                           const float* g, long long R, int D,
-                           int index_bytes, float neg_lr, float eps,
-                           void* stream) {
-  if (R <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vectorizable(D, table, sum, g);
-  if (index_bytes == 8) {
-    auto* u = static_cast<const long long*>(uniq);
-    if (vec)
-      adagrad_rows<long long, true><<<blocks(R), THREADS, 0, s>>>(
-          table, sum, u, g, R, D, neg_lr, eps);
-    else
-      adagrad_rows<long long, false><<<blocks(R), THREADS, 0, s>>>(
-          table, sum, u, g, R, D, neg_lr, eps);
-  } else {
-    auto* u = static_cast<const int*>(uniq);
-    if (vec)
-      adagrad_rows<int, true><<<blocks(R), THREADS, 0, s>>>(
-          table, sum, u, g, R, D, neg_lr, eps);
-    else
-      adagrad_rows<int, false><<<blocks(R), THREADS, 0, s>>>(
-          table, sum, u, g, R, D, neg_lr, eps);
+// In place, in one launch, on the n <= MAX_GROUPS (4) tables of `groups`:
+// table [V, D], sum [V, D] (Adagrad), uniq [R] and g [R, D], float32 and
+// contiguous, on CUDA device `device`, enqueued on `stream`. Returns
+// cudaGetLastError() after the launch (0 on success;
+// cudaErrorInvalidValue for more groups than the kernel takes); no launch
+// when every R is 0.
+int kge_row_update(int adagrad, int n, const HostGroup* groups, int device,
+                   void* stream) {
+  if (n < 0 || n > MAX_GROUPS) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  int used = 0;
+  for (int k = 0; k < n; ++k) {
+    const HostGroup& h = groups[k];
+    if (h.R <= 0) continue;
+    Group& gr = p.group[used++];
+    gr.table = reinterpret_cast<float*>(h.table);
+    gr.sum = reinterpret_cast<float*>(h.sum);
+    gr.uniq = reinterpret_cast<const void*>(h.uniq);
+    gr.g = reinterpret_cast<const float*>(h.g);
+    gr.R = h.R;
+    gr.D = (int)h.D;
+    gr.wide_ids = h.index_bytes == 8;
+    gr.neg_lr = h.neg_lr;
+    gr.eps = h.eps;
+    const unsigned long long bits = (unsigned long long)(h.table | h.g |
+                                                         (adagrad ? h.sum : 0));
+    gr.vec = h.D % 4 == 0 && bits % 16 == 0;
+    gr.first = p.positions;
+    p.positions += h.R;
   }
-  return (int)cudaGetLastError();
-}
-
-// In place on table [V, D] at the R rows uniq names; arguments as above.
-int kge_sgd_row_update(float* table, const void* uniq, const float* g,
-                       long long R, int D, int index_bytes, float neg_lr,
-                       void* stream) {
-  if (R <= 0) return 0;
+  if (p.positions == 0) return 0;
+  for (int k = used; k < MAX_GROUPS; ++k) p.group[k].first = p.positions;
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  // one wave of blocks at most; past it the warps loop over the positions
+  const long long wave = (long long)sm_count(device) * blocks_per_sm(adagrad);
+  const long long blocks = std::min((p.positions + WARPS - 1) / WARPS, wave);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vectorizable(D, table, table, g);
-  if (index_bytes == 8) {
-    auto* u = static_cast<const long long*>(uniq);
-    if (vec)
-      sgd_rows<long long, true><<<blocks(R), THREADS, 0, s>>>(
-          table, u, g, R, D, neg_lr);
-    else
-      sgd_rows<long long, false><<<blocks(R), THREADS, 0, s>>>(
-          table, u, g, R, D, neg_lr);
-  } else {
-    auto* u = static_cast<const int*>(uniq);
-    if (vec)
-      sgd_rows<int, true><<<blocks(R), THREADS, 0, s>>>(
-          table, u, g, R, D, neg_lr);
-    else
-      sgd_rows<int, false><<<blocks(R), THREADS, 0, s>>>(
-          table, u, g, R, D, neg_lr);
-  }
-  return (int)cudaGetLastError();
+  if (adagrad)
+    adagrad_rows<<<(unsigned)blocks, THREADS, 0, s>>>(p);
+  else
+    sgd_rows<<<(unsigned)blocks, THREADS, 0, s>>>(p);
+  const int err = (int)cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return err;
 }
 
 }  // extern "C"

@@ -13,8 +13,9 @@ set (``optax.add_decayed_weights``). The state is one plain ``sum``
 tensor per parameter for Adagrad and nothing for SGD; the training job
 holds it and passes it in. Parameters named in ``sparse_paths`` (the
 embedding tables of a row-sparse run) are left out of the dense step:
-``sparse_row_update`` updates the rows a batch touched, through the
-row-update kernel (``ops/row_update.py``). SGD momentum and the other
+``sparse_row_update`` updates the rows a batch touched in every such
+table, through one launch of the row-update kernel
+(``ops/row_update.py``). SGD momentum and the other
 optimizer types raise "not yet ported".
 
 Checkpoints store the state in ``kge_tpu``'s leaf order (see
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from kge_tpu_torch.config import Config
-from kge_tpu_torch.ops.row_update import adagrad_row_update, sgd_row_update
+from kge_tpu_torch.ops.row_update import row_update_groups
 from kge_tpu_torch.utils.params import tree_leaves
 
 
@@ -168,22 +169,25 @@ class KgeOptimizer:
             p.sub_(lr * (g / (acc.sqrt() + eps)))
 
     @torch.no_grad()
-    def sparse_row_update(self, state: Dict[str, torch.Tensor], name: str,
-                          uniq: torch.Tensor, row_grads: torch.Tensor,
-                          lrs: Dict[str, float]):
-        """The optimizer step on the ``uniq`` rows of the sparse table
-        ``name``, in place, from their gradient rows: one launch of the
-        row-update kernel on a card, its plain version on the host.
-        ``uniq`` is sorted; a run of equal ids carries its gradient at its
-        last position. Exact counterpart of torch sparse Adagrad / plain
-        SGD on sparse gradients."""
-        table = self.params[name]
-        lr = lrs[self.group_of[name]]
-        if self.opt_type == "sgd":
-            sgd_row_update(table, uniq, row_grads, lr)
-        else:
-            adagrad_row_update(table, state[name], uniq, row_grads, lr,
-                               self._arg(name, "eps", 1e-10))
+    def sparse_row_update(
+            self, state: Dict[str, torch.Tensor],
+            rows: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
+            lrs: Dict[str, float]):
+        """The optimizer step on the touched rows of every sparse table of
+        a step, in place: ``rows`` maps a table's name to ``(uniq,
+        row_grads)``, its sorted row ids and their gradient rows (a run of
+        equal ids carries its gradient at its last position). Each table
+        keeps its group's ``lr`` and ``eps``. One launch of the row-update
+        kernel for all tables on a card, its plain version on the host.
+        Exact counterpart of torch sparse Adagrad / plain SGD on sparse
+        gradients."""
+        sgd = self.opt_type == "sgd"
+        groups = [
+            (self.params[name], None if sgd else state[name], uniq,
+             row_grads, lrs[self.group_of[name]],
+             self._arg(name, "eps", 1e-10))
+            for name, (uniq, row_grads) in rows.items()]
+        row_update_groups(self.opt_type, groups)
 
     # ------------------------------------------------------------------ state
 

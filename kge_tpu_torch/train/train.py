@@ -259,9 +259,13 @@ class TrainingJob(TrainingOrEvaluationJob):
             penalty_total = penalty_total.detach()
         with record_function("train.optimizer"):
             self.optimizer.step(self.opt_state, lrs)
-            for name, (uniq, gathered) in rows.items():
+            # every sparse table of the step in one call: one launch of
+            # the row-update kernel on a card
+            if rows:
                 self.optimizer.sparse_row_update(
-                    self.opt_state, name, uniq, gathered.grad, lrs)
+                    self.opt_state,
+                    {name: (uniq, gathered.grad)
+                     for name, (uniq, gathered) in rows.items()}, lrs)
             self.model.normalize_params()
         return {
             "avg_loss": total_loss,

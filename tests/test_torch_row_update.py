@@ -3,7 +3,9 @@ row_update.py), against kge_tpu's: on CPU tensors the port's wrappers
 (their plain versions) match ``adagrad_row_update`` / ``sgd_row_update``
 in interpret mode and the XLA form of ``KgeOptimizer.sparse_row_update``
 on the same seeded inputs, including a run of equal ids carrying its
-gradient at its last position and the ids 0 and V-1.
+gradient at its last position and the ids 0 and V-1. The grouped entry
+``row_update_groups`` (several tables, each with its own lr and eps, in
+one launch on a card) is held against them one table at a time.
 
 Tolerance rtol 1e-6 / atol 1e-7 on the touched rows: the Pallas form
 (``table - lr * g / (sqrt(s) + eps)``) and the XLA form (``table +
@@ -64,31 +66,31 @@ def port_update(optimizer, table, ssum, uniq, rows_g, ids=torch.int64):
     return t.numpy(), s.numpy()
 
 
-def jax_kernel_update(optimizer, table, ssum, uniq, rows_g):
-    lr = jnp.float32(LR)
+def jax_kernel_update(optimizer, table, ssum, uniq, rows_g, lr=LR, eps=EPS):
+    lr = jnp.float32(lr)
     if optimizer == "adagrad":
         t, s = jax_adagrad_row_update(jnp.asarray(table), jnp.asarray(ssum),
                                       jnp.asarray(uniq), jnp.asarray(rows_g),
-                                      lr, EPS, interpret=True)
+                                      lr, eps, interpret=True)
         return np.asarray(t), np.asarray(s)
     t = jax_sgd_row_update(jnp.asarray(table), jnp.asarray(uniq),
                            jnp.asarray(rows_g), lr, interpret=True)
     return np.asarray(t), ssum
 
 
-def jax_xla_update(optimizer, table, ssum, uniq, rows_g):
+def jax_xla_update(optimizer, table, ssum, uniq, rows_g, lr=LR, eps=EPS):
     config = JaxConfig()
     config.set("console.quiet", True)
     config.set("train.optimizer.default.type",
                "Adagrad" if optimizer == "adagrad" else "SGD")
-    config.set("train.optimizer.default.args.lr", LR, create=True)
-    config.set("train.optimizer.default.args.eps", EPS, create=True)
+    config.set("train.optimizer.default.args.lr", lr, create=True)
+    config.set("train.optimizer.default.args.eps", eps, create=True)
     params = {"table": jnp.asarray(table)}
     opt = JaxKgeOptimizer(config, params, sparse_paths=("table",))
     state = {"sum": jnp.asarray(ssum)} if optimizer == "adagrad" else {}
     t, new_state = opt.sparse_row_update(
         "table", params["table"], state, jnp.asarray(uniq),
-        jnp.asarray(rows_g), {"default": jnp.float32(LR)}, in_place=False)
+        jnp.asarray(rows_g), {"default": jnp.float32(lr)}, in_place=False)
     return np.asarray(t), np.asarray(new_state.get("sum", ssum))
 
 
@@ -187,6 +189,155 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     if case != "sum shape":
         with pytest.raises((TypeError, ValueError)):
             ru.sgd_row_update(table, uniq, rows_g, LR)
+
+
+#: groups of a grouped call: (V, R, D, lr, eps, ids dtype); R = 0 is a
+#: table the step did not touch
+GROUPS = {
+    "one": [(V, R, D, LR, EPS, torch.int64)],
+    "two": [(V, R, D, LR, EPS, torch.int32),
+            (48, 12, 12, 0.05, 1e-6, torch.int64)],
+    "two-and-empty": [(V, R, D, LR, EPS, torch.int64),
+                      (48, 12, 12, 0.05, 1e-6, torch.int32),
+                      (16, 0, D, 0.3, 1e-8, torch.int64)],
+}
+
+
+def make_groups(case, seed):
+    """[(table, sum, uniq, rows_g, lr, eps, ids dtype)] as numpy arrays,
+    each from make_inputs (a run of equal ids, a zero-gradient row, the
+    ids 0 and V-1) or, for R = 0, an untouched table."""
+    groups = []
+    for k, (v, r, d, lr, eps, ids) in enumerate(GROUPS[case]):
+        if r == 0:
+            rng = np.random.default_rng(seed + k)
+            inputs = (rng.standard_normal((v, d)).astype(np.float32),
+                      rng.uniform(0.0, 2.0, (v, d)).astype(np.float32),
+                      np.zeros(0, np.int32), np.zeros((0, d), np.float32))
+        else:
+            inputs = make_inputs(seed + k, v, r, d)
+        groups.append((*inputs, lr, eps, ids))
+    return groups
+
+
+def port_groups(optimizer, groups):
+    """The port's grouped call on CPU tensors; returns [(table, sum)]."""
+    tensors = [(torch.tensor(t), torch.tensor(s), torch.tensor(u, dtype=ids),
+                torch.tensor(g), lr, eps)
+               for t, s, u, g, lr, eps, ids in groups]
+    ru.row_update_groups(optimizer, [
+        (t, s if optimizer == "adagrad" else None, u, g, lr, eps)
+        for t, s, u, g, lr, eps in tensors])
+    return [(t.numpy(), s.numpy()) for t, s, *_ in tensors]
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "sgd"])
+@pytest.mark.parametrize("case", list(GROUPS))
+@pytest.mark.parametrize("reference", ["pallas_interpret", "xla_form"])
+def test_grouped_plain_version_matches_kge_tpu(optimizer, case, reference):
+    """One grouped call against kge_tpu's functions one table at a time,
+    each with its own lr and eps; a group with R = 0 stays as it was."""
+    groups = make_groups(case, seed=5)
+    got = port_groups(optimizer, groups)
+    update = (jax_kernel_update if reference == "pallas_interpret"
+              else jax_xla_update)
+    for (table, ssum, uniq, rows_g, lr, eps, _), out in zip(groups, got):
+        if len(uniq) == 0:
+            np.testing.assert_array_equal(out[0], table)
+            np.testing.assert_array_equal(out[1], ssum)
+            continue
+        want = update(optimizer, table, ssum, uniq, rows_g, lr=lr, eps=eps)
+        assert_update_close(out, want, table, ssum, uniq)
+        if optimizer == "sgd":
+            np.testing.assert_array_equal(out[1], ssum)
+
+
+def test_grouped_call_equals_one_table_calls():
+    """A grouped call gives each table the bits of its own one-table call,
+    with int32 and int64 ids alike."""
+    for optimizer in ("adagrad", "sgd"):
+        groups = make_groups("two-and-empty", seed=6)
+        got = port_groups(optimizer, groups)
+        for (table, ssum, uniq, rows_g, lr, eps, ids), out in zip(groups,
+                                                                   got):
+            t, s = torch.tensor(table), torch.tensor(ssum)
+            u, g = torch.tensor(uniq, dtype=ids), torch.tensor(rows_g)
+            if optimizer == "adagrad":
+                ru.adagrad_row_update(t, s, u, g, lr, eps)
+            else:
+                ru.sgd_row_update(t, u, g, lr)
+            np.testing.assert_array_equal(out[0], t.numpy())
+            np.testing.assert_array_equal(out[1], s.numpy())
+    assert (ru.adagrad_row_update.launches,
+            ru.sgd_row_update.launches) == (0, 0)
+
+
+def _bad_groups(case):
+    """Two Adagrad groups on the CPU, with one fault."""
+    groups = [[torch.tensor(x) for x in make_inputs(7 + k)] + [LR, EPS]
+              for k in range(2)]
+    if case == "mixed devices":
+        groups[1][:4] = [x.to("meta") for x in groups[1][:4]]
+    elif case == "too many groups":
+        groups = groups * 3
+    elif case == "float64 rows_g":
+        groups[1][3] = groups[1][3].double()
+    elif case == "strided table":
+        groups[1][0] = torch.cat([groups[1][0]] * 2, dim=1)[:, ::2]
+    elif case == "non-contiguous uniq":
+        groups[1][2] = torch.stack([groups[1][2]] * 2, dim=1)[:, 0]
+    elif case == "no sum":
+        groups[1][1] = None
+    return [tuple(g) for g in groups]
+
+
+@pytest.mark.parametrize("case", [
+    "mixed devices", "too many groups", "float64 rows_g", "strided table",
+    "non-contiguous uniq", "no sum"])
+def test_grouped_entry_refuses_what_the_kernel_does_not_take(case):
+    groups = _bad_groups(case)
+    before = [t.clone() for t, *_ in groups]
+    with pytest.raises((TypeError, ValueError)):
+        ru.row_update_groups("adagrad", groups)
+    if case != "mixed devices":  # nothing was written before the refusal
+        assert all(torch.equal(t, b) for (t, *_), b in zip(groups, before))
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_matches_reference_on_card():
+    """Two tables in one launch (int32 and int64 ids, D = 128 on float4
+    lanes and D = 37 one element a lane, a leading-row view at 4 bytes
+    past 16) against the plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes = ((4096, 700, 128, torch.int32), (512, 300, 37, torch.int64))
+    for optimizer in ("adagrad", "sgd"):
+        got, want = [], []
+        for k, (v, r, d, ids) in enumerate(shapes):
+            table, ssum, uniq, rows_g = (
+                torch.from_numpy(x).cuda()
+                for x in make_inputs(seed=k, v=v, r=r, d=d))
+            view = table.clone()
+            if d % 4:  # the table at 4 bytes past a 16-byte boundary
+                flat = torch.empty(v * d + 1, device="cuda")
+                flat[1:] = table.flatten()
+                view = flat[1:].view(v, d)
+            lr, eps = LR / (k + 1), EPS * (k + 1)
+            adagrad = optimizer == "adagrad"
+            got.append((view, ssum.clone() if adagrad else None,
+                        uniq.to(ids), rows_g, lr, eps))
+            want.append((table.clone(), ssum.clone() if adagrad else None,
+                         uniq.long(), rows_g, lr, eps))
+        counter = (ru.adagrad_row_update if optimizer == "adagrad"
+                   else ru.sgd_row_update)
+        before = counter.launches
+        ru.row_update_groups(optimizer, got)
+        assert counter.launches == before + 1
+        ru.row_update_groups_reference(optimizer, want)
+        for a, b in zip(got, want):
+            assert torch.equal(a[0], b[0])
+            if a[1] is not None:
+                assert torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda

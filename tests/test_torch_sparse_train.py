@@ -127,6 +127,32 @@ def test_sparse_step_leaves_no_table_gradient():
             ru.sgd_row_update.launches) == launches == (0, 0)
 
 
+@pytest.mark.parametrize("optimizer", ["Adagrad", "SGD"])
+def test_sparse_step_updates_both_tables_in_one_call(optimizer):
+    """A row-sparse step hands both tables to one ``sparse_row_update``
+    call (one kernel launch on a card), each with its touched ids."""
+    job = port_job({**SPARSE, "train.max_epochs": 1,
+                    "tpu.fused_negsamp_loss": "always",
+                    "train.optimizer.default.type": optimizer})
+    job._prepare()
+    job._is_prepared = True
+    job.epoch = 1
+    calls = []
+    update = job.optimizer.sparse_row_update
+
+    def recorded(state, rows, lrs):
+        calls.append({name: uniq.clone() for name, (uniq, _) in rows.items()})
+        update(state, rows, lrs)
+
+    job.optimizer.sparse_row_update = recorded
+    batch_np = next(job._generate_batches(1))
+    job._step(job._put_batch(batch_np),
+              {g: 0.1 for g in job.optimizer.base_lrs})
+    assert len(calls) == 1 and tuple(calls[0]) == TABLES
+    for name, key in zip(TABLES, ("uniq_e", "uniq_r")):
+        np.testing.assert_array_equal(calls[0][name].numpy(), batch_np[key])
+
+
 def test_row_index_payload():
     """Sorted distinct ids of exactly the bound's size, fill ids from the
     top of the padded vocabulary, and the batch's indexes remapped so
