@@ -67,6 +67,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    [4,818,680, 128] table and sum, 2,306 sorted distinct ids spread over
    it, 0 and V-1 among them; int64 and int32 ids), at the relation shape
    (832 rows, all touched), a training step's two tables in one launch,
+   the triple phase's step in one launch (a [14,544, 128] entity table
+   with 8,192 of its rows and the [240, 128] relation table, int32 ids),
    on constructed cases (a run of equal ids with its gradient at the last
    position, zero-gradient rows, a NaN gradient element) and at the
    kernel's edges (R in {1, 2, 3, 5, 33, 257, 1031, 4099}, runs of equal
@@ -94,16 +96,49 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on the host (plain K1 and K3): first batch within 1e-5 relative and
    epoch within 1e-3. Prints ms per step, triples/s, set-up and
    checkpoint-save seconds and peak device memory. It needs about 10 GB
-   of disk under ``local/`` (two 4.9 GB checkpoints at a time).
+   of disk under ``local/`` (two 4.9 GB checkpoints at a time);
+10. losses and optimizers (run after the K3 kernel phase), the card
+   against the host on the same inputs: each of the eight losses, value
+   and gradient, at the KvsAll shape ([128, 14,541] scores, smoothed
+   matrix labels) and a negative-sampling one ([1024, 4], index labels),
+   rtol 1e-5 and gradient atol 1e-6; each optimizer type (Adagrad, Adam,
+   AdamW, Adamax, RMSprop, Adadelta, SGD plain, with momentum, with
+   Nesterov) for 5 steps on ComplEx's two tables in two groups,
+   parameters and state rtol 1e-5, atol 1e-7;
+11. KvsAll phase, the main path of the trainers' slice (run after the
+   SGD phase, on the FB15k-237-size graph): ``start`` with the train
+   block of ``examples/recipes/fb15k237-compgcn.yaml`` (KvsAll, bce,
+   label smoothing 0.1, Adam lr 0.001, batch 128, the sp_ and _po query
+   types, tpu.steps_per_dispatch at its default 4, so the batch order is
+   regrouped) on ComplEx dim 128 in place of CompGCN, 2 epochs with a
+   validation after each (K2 276 times, K1 and K3 never), ``resume`` to
+   epoch 3 (K2 138 times); losses finite and falling, MRR in (0, 1];
+   epoch 1 again from ``checkpoint_00000.pt`` on the card and on the
+   host, its first 100 batches (a host epoch takes minutes): the first
+   batch within 1e-5 relative, their avg_loss within 1e-3; one epoch
+   under torch.profiler (ms a step, queries/s, device busy share, the
+   ``train.optimizer`` span, peak memory);
+12. 1vsAll phase: one epoch with kl, Adagrad lr 0.2, batch 1024 and a
+   validation (K2 138 times); its first batch on the card and the host
+   within 1e-5; a second epoch profiled;
+13. triple phase: the negative sampler at its defaults (not shared, 3 +
+   3 negatives, so ``auto`` scoring resolves to ``triple``) with
+   filtering of o, bce, Adagrad lr 0.2, batch 1024,
+   ``tpu.sparse_updates: always`` and weighted regularization, one
+   epoch (K3 once a step for both tables, 266 times; K1 never), against
+   the same epoch dense on the card: first batch within 1e-5, epoch
+   within 1e-3; a second row-sparse epoch profiled.
 
-Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``. Exits non-zero when no CUDA device is present or the package
-is missing.
+Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
+every run that drives a path, ``launches_by_phase``) and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero when no CUDA device is
+present or the package is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -141,6 +176,11 @@ ATOL, RTOL = 1e-5, 1e-4
 # the training main path (examples/wikidata5m-complex-train.yaml)
 TRAIN_BATCH, NEGATIVES, VALID_BATCH = 1024, 128, 256
 TRAIN_STEPS = math.ceil(FB15K237["splits"]["train"] / TRAIN_BATCH)
+# K2 launches of one validation at the FB15k-237 size: two sides a batch
+VALID_LAUNCHES = 2 * math.ceil(FB15K237["splits"]["valid"] / VALID_BATCH)
+# KvsAll's batch (examples/recipes/fb15k237-compgcn.yaml); the host
+# compares this many of its batches with the card
+KVSALL_BATCH, HOST_BATCHES = 128, 100
 W5M_STEPS = math.ceil(WIKIDATA5M["splits"]["train"] / TRAIN_BATCH)
 # rows a step touches: 2 per triple and 128 + 1 shared negatives per
 # entity slot; every relation row (828, padded to 832)
@@ -148,6 +188,12 @@ W5M_ENTITY_ROWS = 2 * TRAIN_BATCH + 2 * (NEGATIVES + 1)
 W5M_RELATION_ROWS = 832
 # K3's inputs: the recipe's learning rate, Adagrad's default eps
 K3_LR, K3_EPS = 0.2, 1e-10
+# the triple phase's row-sparse step: 2 entity rows a triple and 3 + 3
+# per-row negatives (the sampler's defaults), int32 ids into the tables
+# padded to a multiple of 8 (every relation row is touched)
+TRIPLE_ENTITY_ROWS = 2 * TRAIN_BATCH + 2 * 3 * TRAIN_BATCH
+FB_ENTITY_ROWS = -(-FB15K237["entities"] // 8) * 8
+FB_RELATION_ROWS = -(-FB15K237["relations"] // 8) * 8
 
 
 def fail(message: str):
@@ -432,7 +478,8 @@ def eval_phase(rc, kernels, seed, device, scratch) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = rc.rank_counts.launches
-    expect_counts("the eval", counts(kernels), dict(
+    eval_counts = counts(kernels)
+    expect_counts("the eval", eval_counts, dict(
         shared_ce_loss=0, adagrad_row_update=0, sgd_row_update=0))
 
     n_test = FB15K237["splits"]["test"]
@@ -467,7 +514,8 @@ def eval_phase(rc, kernels, seed, device, scratch) -> dict:
           flush=True)
     profile_run("eval", "entity_ranking.",
                 lambda: cli.main(["test", run_folder]))
-    return dict(launches=launches, dataset_folder=dataset_folder)
+    return dict(launches=launches, dataset_folder=dataset_folder,
+                counts=eval_counts)
 
 
 def profile_run(label: str, span_prefix: str, run, epoch_only=False):
@@ -715,16 +763,28 @@ def device_us_by_name(fn, reps: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = out.get(e.name, (0.0, 0))
-            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    return {name: (us / reps, n / reps) for name, (us, n) in out.items()}
+    # the profiler at times loses a window's records (a kernel counted 13
+    # times over 50 calls that each launch it once): a count that is not
+    # a whole number a call shows it, and the window is profiled again;
+    # a third lossy window fails the run rather than under-count
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = out.get(e.name, (0.0, 0))
+                out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        lost = [name for name, (_, n) in out.items() if n % reps]
+        if not lost:
+            return {name: (us / reps, n / reps)
+                    for name, (us, n) in out.items()}
+        print(f"profiler lost records of {lost} (attempt {attempt + 1}): "
+              f"{[out[name][1] for name in lost]} over {reps} calls",
+              flush=True)
+    fail(f"torch.profiler lost device records in 3 windows of {reps} calls")
 
 
 def kernel_device_ms(fn, reps: int, name_part: str) -> float:
@@ -909,6 +969,20 @@ def k3_edge_cases(seed, device):
     return cases
 
 
+def triple_step_inputs(seed, device):
+    """The two groups of the triple phase's row-sparse step: the
+    FB15k-237-size entity table ([14,544, 128], 8,192 distinct rows with
+    the padding rows' last among them) and the relation table ([240,
+    128], every row), int32 ids as the trainer gives them."""
+    groups = [make_k3_inputs(FB_ENTITY_ROWS, TRIPLE_ENTITY_ROWS, DIM, seed,
+                             device),
+              make_k3_inputs(FB_RELATION_ROWS, FB_RELATION_ROWS, DIM,
+                             seed + 1, device)]
+    for group in groups:
+        group[2] = group[2].int()
+    return groups
+
+
 def k3_bound(optimizer, rows, D):
     """(bound_ms, bytes) of one update of ``rows`` touched rows: the
     gradient, table and (Adagrad) sum rows read, the table and sum rows
@@ -920,7 +994,8 @@ def k3_bound(optimizer, rows, D):
 
 def k3_phase(ru, seed, device) -> dict:
     """K3 on the card: the Wikidata5M entity shape (int64 and int32 ids),
-    the relation shape, a training step's two tables in one launch,
+    the relation shape, a training step's two tables in one launch, the
+    triple phase's step (FB15k-237-size tables) in one launch,
     constructed cases and the kernel's edges, Adagrad and SGD; then times
     at the entity shape, the relation shape and the two-table step, each
     launch on another 2,306 entity rows (20 sets: 118 MB, beyond the 50 MB
@@ -938,6 +1013,8 @@ def k3_phase(ru, seed, device) -> dict:
          [main[:2] + [main[2].int(), main[3]]]),
         ("training step: entity and relation tables in one launch",
          [main, relations]),
+        ("triple phase step: entity and relation tables in one launch",
+         triple_step_inputs(seed + 9, device)),
         *k3_edge_cases(seed, device),
     ]
     out = {}
@@ -1126,8 +1203,6 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
     k1, k2 = launched["shared_ce_loss"], launched["rank_counts"]
     expect_counts("the FB15k-237-size training", launched,
                   dict(adagrad_row_update=0, sgd_row_update=0))
-    copy_run(run, os.path.join(scratch, "epoch1-cuda"), "checkpoint_00000.pt")
-    copy_run(run, os.path.join(scratch, "epoch1-cpu"), "checkpoint_00000.pt")
 
     epochs = read_trace(run, event="epoch_completed", job="train")
     valids = read_trace(run, event="eval_completed", job="eval")
@@ -1143,7 +1218,7 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
         valid_mrr_filtered=[v["mean_reciprocal_rank_filtered"]
                             for v in valids])), flush=True)
     want_k1 = 2 * TRAIN_STEPS * 2
-    want_k2 = 2 * 2 * math.ceil(FB15K237["splits"]["valid"] / VALID_BATCH)
+    want_k2 = 2 * VALID_LAUNCHES
     if k1 != want_k1:
         fail(f"training launched shared_ce_loss {k1} times, expected "
              f"{want_k1}")
@@ -1173,38 +1248,16 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
                   dict(shared_ce_loss=2 * TRAIN_STEPS))
 
     # card vs host: epoch 1 again from the same initial weights
-    runs = {}
-    for device in ("cuda", "cpu"):
-        folder = os.path.join(scratch, f"epoch1-{device}")
-        t0 = time.perf_counter()
-        entry = cli.main([
-            "resume", folder, "--train.max_epochs", "1", "--valid.every",
-            "0", "--train.trace_level", "batch", "--tpu.fused_negsamp_loss",
-            "always", "--job.device", device])
-        first = read_trace(folder, scope="batch")[0]["avg_loss"]
-        runs[device] = dict(first_batch_loss=first,
-                            avg_loss=entry["avg_loss"],
-                            epoch_seconds=entry["epoch_time"],
-                            seconds_cli=time.perf_counter() - t0)
-    card, host = runs["cuda"], runs["cpu"]
-    first_rel = abs(card["first_batch_loss"] - host["first_batch_loss"]) / abs(
-        host["first_batch_loss"])
-    epoch_rel = abs(card["avg_loss"] - host["avg_loss"]) / abs(
-        host["avg_loss"])
-    print("train epoch 1 card vs host (plain K1): " + json.dumps(dict(
-        card=card, host=host, first_batch_relative_difference=first_rel,
-        epoch_avg_loss_relative_difference=epoch_rel,
-        start_run_epoch1_avg_loss=losses[0])), flush=True)
-    if first_rel > 1e-5:
-        fail(f"first batch loss: card {card['first_batch_loss']} vs host "
-             f"{host['first_batch_loss']}")
+    compared = card_vs_host("negsamp", run, scratch,
+                            flags=["--tpu.fused_negsamp_loss", "always"])
+    if compared["first_batch_relative_difference"] > 1e-5:
+        fail(f"first batch loss, card vs host: {compared}")
     # the weights part after the first step: Adagrad's first update of an
     # element is about lr * sign(g), so a gradient at rounding-noise size
     # moves by 2 * lr in the other summation order; a few such elements
     # among 1.9M shift the epoch average slightly
-    if epoch_rel > 1e-3:
-        fail(f"epoch avg_loss: card {card['avg_loss']} vs host "
-             f"{host['avg_loss']}")
+    if compared["avg_loss_relative_difference"] > 1e-3:
+        fail(f"epoch avg_loss, card vs host: {compared}")
 
     # one more epoch under the profiler, without validation
     folder = os.path.join(scratch, "profiled")
@@ -1212,11 +1265,15 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
     profile_run("train", "train.", lambda: cli.main([
         "resume", folder, "--train.max_epochs", "4", "--valid.every", "0"]),
         epoch_only=True)
-    return dict(k1_launches=k1, config_file=config_file)
+    return dict(k1_launches=k1, config_file=config_file, counts=launched)
+
+
+def batch_losses(folder: str) -> list:
+    return [e["avg_loss"] for e in read_trace(folder, scope="batch")]
 
 
 def first_batch_loss(folder: str) -> float:
-    return read_trace(folder, scope="batch")[0]["avg_loss"]
+    return batch_losses(folder)[0]
 
 
 def relative(a: float, b: float) -> float:
@@ -1262,7 +1319,423 @@ def sgd_phase(kernels, scratch, config_file) -> dict:
     if first_rel > 1e-6 or epoch_rel > 1e-5:
         fail("row-sparse and dense SGD disagree: first batch "
              f"{first_rel}, epoch {epoch_rel}")
-    return dict(launches=sparse["launches"]["sgd_row_update"])
+    return dict(launches=sparse["launches"]["sgd_row_update"],
+                counts=sparse["launches"])
+
+
+# ----------------------------------------------------------------- strategies
+
+
+def write_strategy_config(path: str, dataset_folder: str, seed: int,
+                          train: dict, **sections):
+    """ComplEx dim 128 on the FB15k-237-size graph with the given train
+    block (and sections), a validation after each epoch."""
+    config = {
+        "job": {"type": "train"},
+        "dataset": {"name": dataset_folder},
+        "model": "complex",
+        "lookup_embedder": {
+            "dim": DIM, "initialize": "normal_",
+            "initialize_args": {"normal_": {"std": 0.03}},
+        },
+        "train": {"max_epochs": 1, **train},
+        "valid": {"every": 1, "metric": "mean_reciprocal_rank_filtered"},
+        "eval": {"batch_size": VALID_BATCH},
+        "random_seed": {"default": seed},
+        "console": {"quiet": True},
+    }
+    for key, value in sections.items():
+        config[key] = {**config.get(key, {}), **value}
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+
+
+@contextlib.contextmanager
+def first_batches(n: int):
+    """Every training job created inside stops its epochs after their
+    first ``n`` batches, in the epoch's own order."""
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.train.train import TrainingJob
+
+    def cut(job):
+        if isinstance(job, TrainingJob):
+            generate = job._generate_batches
+            job._generate_batches = lambda epoch: itertools.islice(
+                generate(epoch), n)
+
+    Job.job_created_hooks.append(cut)
+    try:
+        yield
+    finally:
+        Job.job_created_hooks.remove(cut)
+
+
+def card_vs_host(label: str, run: str, scratch: str, flags=(),
+                 batches=None) -> dict:
+    """Epoch 1 again from ``run``'s checkpoint_00000.pt on the card and on
+    the host (the first ``batches`` batches of it when given), with a
+    batch-level trace: the first batch's loss, the epoch's (or the
+    batches') avg_loss and the largest relative difference of a batch."""
+    from kge_tpu_torch import cli
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        folder = os.path.join(scratch, f"{label}-epoch1-{device}")
+        copy_run(run, folder, "checkpoint_00000.pt")
+        t0 = time.perf_counter()
+        argv = ["resume", folder, "--train.max_epochs", "1", "--valid.every",
+                "0", "--train.trace_level", "batch", "--job.device", device,
+                *flags]
+        if batches:
+            with first_batches(batches):
+                entry = cli.main(argv)
+        else:
+            entry = cli.main(argv)
+        losses = batch_losses(folder)
+        runs[device] = dict(first_batch_loss=losses[0],
+                            avg_loss=entry["avg_loss"],
+                            batches=entry["batches"],
+                            epoch_seconds=entry["epoch_time"],
+                            seconds_cli=time.perf_counter() - t0,
+                            losses=losses)
+        shutil.rmtree(folder)
+    card, host = runs["cuda"], runs["cpu"]
+    worst = max(relative(a, b) for a, b in zip(card.pop("losses"),
+                                               host.pop("losses")))
+    out = dict(card=card, host=host, batches_compared=batches or "epoch",
+               first_batch_relative_difference=relative(
+                   card["first_batch_loss"], host["first_batch_loss"]),
+               avg_loss_relative_difference=relative(card["avg_loss"],
+                                                     host["avg_loss"]),
+               largest_batch_relative_difference=worst)
+    print(f"train {label} card vs host: " + json.dumps(out), flush=True)
+    return out
+
+
+def profiled_epoch(label: str, run: str, scratch: str, epoch: int):
+    """Epoch ``epoch`` of ``run`` (from its checkpoint of the epoch
+    before), without validation, under torch.profiler: ms a step,
+    examples/s, the device's busy share and peak memory."""
+    from kge_tpu_torch import cli
+
+    folder = os.path.join(scratch, f"{label}-profiled")
+    copy_run(run, folder, f"checkpoint_{epoch - 1:05d}.pt")
+    base = fresh_device_memory()
+    entry, device = profile_run(
+        f"train {label}", "train.", lambda: cli.main([
+            "resume", folder, "--train.max_epochs", str(epoch),
+            "--valid.every", "0"]), epoch_only=True)
+    device_ms = sum(ms for ms, _ in device.values())
+    print(f"train {label} profiled epoch: " + json.dumps(dict(
+        epoch_seconds=entry["epoch_time"], batches=entry["batches"],
+        ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
+        examples_per_s=entry["size"] / entry["epoch_time"],
+        device_busy_share=device_ms / (1e3 * entry["epoch_time"]),
+        peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
+        device_memory_before_bytes=base)), flush=True)
+    shutil.rmtree(folder)
+
+
+def check_start(label: str, run: str, launched: dict, want: dict,
+                epochs_wanted: int):
+    """The epochs of a ``start``: finite losses, falling from epoch to
+    epoch, a validation MRR in (0, 1] after each, the kernel counts."""
+    epochs = read_trace(run, event="epoch_completed", job="train")
+    valids = read_trace(run, event="eval_completed", job="eval")
+    for e in epochs:
+        print(f"train {label} epoch on the card: " + json.dumps(dict(
+            epoch=e["epoch"], avg_loss=e["avg_loss"], batches=e["batches"],
+            examples=e["size"], epoch_seconds=e["epoch_time"],
+            examples_per_s=e["size"] / e["epoch_time"],
+            ms_per_step=1e3 * e["epoch_time"] / e["batches"])), flush=True)
+    print(f"train {label} start on the card: " + json.dumps(dict(
+        launches=launched, valid_mrr_filtered=[
+            v["mean_reciprocal_rank_filtered"] for v in valids])),
+        flush=True)
+    expect_counts(f"the {label} training", launched, want)
+    losses = [e["avg_loss"] for e in epochs]
+    if len(losses) != epochs_wanted or not all(map(math.isfinite, losses)):
+        fail(f"{label}: losses missing or not finite: {losses}")
+    if any(b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"{label}: the losses do not fall: {losses}")
+    if len(valids) != epochs_wanted or not all(
+            0.0 < v["mean_reciprocal_rank_filtered"] <= 1.0 for v in valids):
+        fail(f"{label}: a validation is missing or out of range")
+    return epochs
+
+
+def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The slice's main path: ``start`` of KvsAll with the train block of
+    examples/recipes/fb15k237-compgcn.yaml (bce, label smoothing 0.1, Adam
+    lr 0.001, batch 128, the sp_ and _po query types, the default
+    tpu.steps_per_dispatch, so the batch order is regrouped) on ComplEx
+    dim 128 in place of CompGCN, 2 epochs with a validation after each,
+    ``resume`` to epoch 3, card vs host, one epoch profiled."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, "complex-kvsall.yaml")
+    write_strategy_config(
+        config_file, dataset_folder, seed,
+        dict(type="KvsAll", loss="bce", max_epochs=2,
+             batch_size=KVSALL_BATCH,
+             optimizer={"default": {"type": "Adam", "args": {"lr": 0.001}}}),
+        KvsAll={"label_smoothing": 0.1})
+    run = os.path.join(scratch, "kvsall-run")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    start_counts = counts(kernels)
+    with open(os.path.join(run, "kge.log")) as f:
+        log = f.read()
+    if "KvsAll orders its batches in runs of up to 4" not in log:
+        fail("the KvsAll run did not regroup its batch order")
+    epochs = check_start("kvsall", run, start_counts, dict(
+        rank_counts=2 * VALID_LAUNCHES, shared_ce_loss=0,
+        adagrad_row_update=0, sgd_row_update=0), 2)
+    print(f"train kvsall start seconds_cli {seconds}", flush=True)
+
+    reset_counts(kernels)
+    resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resume_counts = counts(kernels)
+    print("train kvsall resume on the card: " + json.dumps(dict(
+        epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
+        epoch_seconds=resumed["epoch_time"], launches=resume_counts)),
+        flush=True)
+    if resumed["epoch"] != 3 or not math.isfinite(resumed["avg_loss"]):
+        fail(f"the KvsAll resume did not reach a finite epoch 3: {resumed}")
+    expect_counts("the resumed KvsAll epoch", resume_counts, dict(
+        rank_counts=VALID_LAUNCHES, shared_ce_loss=0, adagrad_row_update=0))
+
+    # a host epoch of KvsAll at this size takes minutes: compare the
+    # first HOST_BATCHES batches of epoch 1
+    compared = card_vs_host("kvsall", run, scratch, batches=HOST_BATCHES)
+    if compared["first_batch_relative_difference"] > 1e-5:
+        fail(f"KvsAll first batch, card vs host: {compared}")
+    # Adam's first update of an element is about lr * sign(g), the same
+    # trap as Adagrad's (PERF.md section 2)
+    if compared["avg_loss_relative_difference"] > 1e-3:
+        fail(f"KvsAll first {HOST_BATCHES} batches, card vs host: "
+             f"{compared}")
+
+    profiled_epoch("kvsall", run, scratch, 4)
+    return dict(start=start_counts, resume=resume_counts,
+                queries_per_s=[e["size"] / e["epoch_time"] for e in epochs])
+
+
+def onevsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """1vsAll: one epoch with kl, Adagrad lr 0.2, batch 1024 and one
+    validation; the first batch card vs host."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, "complex-1vsall.yaml")
+    write_strategy_config(
+        config_file, dataset_folder, seed,
+        dict(type="1vsAll", loss="kl", batch_size=TRAIN_BATCH,
+             optimizer={"default": {"type": "Adagrad", "args": {"lr": 0.2}}}))
+    run = os.path.join(scratch, "1vsall-run")
+    reset_counts(kernels)
+    cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    launched = counts(kernels)
+    check_start("1vsall", run, launched, dict(
+        rank_counts=VALID_LAUNCHES, shared_ce_loss=0, adagrad_row_update=0,
+        sgd_row_update=0), 1)
+    compared = card_vs_host("1vsall", run, scratch, batches=1)
+    if compared["first_batch_relative_difference"] > 1e-5:
+        fail(f"1vsAll first batch, card vs host: {compared}")
+    profiled_epoch("1vsall", run, scratch, 2)
+    return dict(start=launched)
+
+
+def triple_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """Default negative sampling, row-sparse: the sampler at its defaults
+    (not shared, 3 + 3 negatives, so ``auto`` scoring is ``triple``) with
+    the objects of the positives filtered out, bce, Adagrad lr 0.2, batch
+    1024, tpu.sparse_updates always and weighted regularization; K3 once
+    a step for both tables. The same epoch dense on the card."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, "complex-triple.yaml")
+    write_strategy_config(
+        config_file, dataset_folder, seed,
+        dict(type="negative_sampling", loss="bce", batch_size=TRAIN_BATCH,
+             optimizer={"default": {"type": "Adagrad", "args": {"lr": 0.2}}},
+             trace_level="batch"),
+        negative_sampling={"filtering": {"o": True}},
+        lookup_embedder={"regularize_weight": 1e-5,
+                         "regularize_args": {"weighted": True}},
+        valid={"every": 0}, tpu={"sparse_updates": "always"})
+    runs = {}
+    run = os.path.join(scratch, "triple-run")
+    for mode in ("always", "never"):
+        reset_counts(kernels)
+        if mode == "always":
+            folder = run
+            entry = cli.main(["start", config_file, "--folder", run])
+        else:
+            folder = os.path.join(scratch, "triple-dense")
+            copy_run(run, folder, "checkpoint_00000.pt")
+            entry = cli.main(["resume", folder, "--train.max_epochs", "1",
+                              "--tpu.sparse_updates", "never"])
+        torch.cuda.synchronize()
+        with open(os.path.join(folder, "kge.log")) as f:
+            log = f.read()
+        losses = batch_losses(folder)
+        runs[mode] = dict(
+            first_batch_loss=losses[0], losses=losses,
+            avg_loss=entry["avg_loss"], epoch_seconds=entry["epoch_time"],
+            ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
+            triples_per_s=entry["size"] / entry["epoch_time"],
+            triple="with 'triple' scoring" in log,
+            sparse="Using row-sparse embedding updates." in log,
+            launches=counts(kernels))
+    shutil.rmtree(os.path.join(scratch, "triple-dense"))
+    sparse, dense = runs["always"], runs["never"]
+    first_rel = relative(dense["first_batch_loss"], sparse["first_batch_loss"])
+    epoch_rel = relative(dense["avg_loss"], sparse["avg_loss"])
+    sparse_losses, dense_losses = sparse.pop("losses"), dense.pop("losses")
+    if len(sparse_losses) != TRAIN_STEPS or len(dense_losses) != TRAIN_STEPS:
+        fail(f"the triple epochs traced {len(sparse_losses)} and "
+             f"{len(dense_losses)} batches, expected {TRAIN_STEPS}")
+    batch_rel = max(relative(d, s) for s, d in zip(sparse_losses,
+                                                   dense_losses))
+    print("train triple sparse vs dense on the card: " + json.dumps(dict(
+        sparse=sparse, dense=dense, first_batch_relative_difference=first_rel,
+        epoch_avg_loss_relative_difference=epoch_rel,
+        largest_batch_relative_difference=batch_rel)), flush=True)
+    if not (sparse["triple"] and dense["triple"]):
+        fail("the default sampler did not resolve to 'triple' scoring")
+    if not sparse["sparse"] or dense["sparse"]:
+        fail("the triple epochs: row-sparse and dense updates mixed up")
+    expect_counts("the row-sparse triple epoch", sparse["launches"], dict(
+        adagrad_row_update=TRAIN_STEPS, sgd_row_update=0, shared_ce_loss=0,
+        rank_counts=0))
+    expect_counts("the dense triple epoch", dense["launches"], dict(
+        adagrad_row_update=0, shared_ce_loss=0))
+    if not math.isfinite(sparse["avg_loss"]):
+        fail(f"the triple epoch's loss is not finite: {sparse['avg_loss']}")
+    # Adagrad's sign trap, as for the other sparse vs dense comparisons;
+    # every batch is held to the epoch's tolerance (K3 itself is held bit
+    # for bit at this step's shapes in the K3 kernel phase)
+    if first_rel > 1e-5 or epoch_rel > 1e-3 or batch_rel > 1e-3:
+        fail(f"row-sparse and dense triple epochs disagree: first batch "
+             f"{first_rel}, epoch {epoch_rel}, largest of a batch "
+             f"{batch_rel}")
+    profiled_epoch("triple", run, scratch, 2)
+    return dict(start=sparse["launches"])
+
+
+LOSSES = ("kl", "ce", "bce", "bce_mean", "bce_self_adversarial",
+          "margin_ranking", "soft_margin", "se")
+OPTIMIZERS = {
+    "Adagrad": {"lr": 0.2}, "Adam": {"lr": 0.001}, "AdamW": {"lr": 0.001},
+    "Adamax": {"lr": 0.002}, "RMSprop": {"lr": 0.001},
+    "Adadelta": {"lr": 1.0}, "SGD": {"lr": 0.1},
+    "SGD-momentum": {"lr": 0.1, "momentum": 0.9},
+    "SGD-nesterov": {"lr": 0.1, "momentum": 0.9, "nesterov": True},
+}
+
+
+def losses_optimizers_phase(seed, device) -> dict:
+    """Every loss, value and gradient, at the KvsAll shape ([128, 14,541],
+    smoothed matrix labels) and a negative-sampling shape ([1024, 4],
+    index labels), and every optimizer type for 5 steps on ComplEx's two
+    tables in two groups: the card against the host on the same inputs."""
+    from kge_tpu_torch import Config
+    from kge_tpu_torch.train.loss import KgeLoss
+    from kge_tpu_torch.train.optimizer import KgeOptimizer
+    from kge_tpu_torch.utils.params import tree_leaves
+
+    def config(**options):
+        c = Config()
+        c.folder = None
+        c.set("console.quiet", True)
+        c.set("train.type", "negative_sampling")
+        for key, value in options.items():
+            c.set(key, value, create=True)
+        return c
+
+    rng = np.random.default_rng(seed)
+    E = FB15K237["entities"]
+    shapes = {}
+    scores = (3 * rng.standard_normal((KVSALL_BATCH, E))).astype(np.float32)
+    labels = (rng.random((KVSALL_BATCH, E)) < 2e-3).astype(np.float32)
+    labels[np.arange(KVSALL_BATCH), rng.integers(0, E, KVSALL_BATCH)] = 1.0
+    shapes["kvsall"] = (scores, 0.9 * labels + 1.0 / E)
+    scores = (3 * rng.standard_normal((TRAIN_BATCH, 4))).astype(np.float32)
+    shapes["negsamp"] = (scores, np.zeros(TRAIN_BATCH, dtype=np.int64))
+    worst = {}
+    for name in LOSSES:
+        loss = KgeLoss.create(config(**{"train.loss": name}))
+        for shape, (s, y) in shapes.items():
+            w = np.ones(len(s), dtype=np.float32)
+            w[-len(s) // 8:] = 0.0  # the padding rows of a last batch
+            out = []
+            for dev in (device, torch.device("cpu")):
+                x = torch.tensor(s, device=dev, requires_grad=True)
+                value = loss(x, torch.tensor(y, device=dev),
+                             row_weights=torch.tensor(w, device=dev))
+                value.backward()
+                out.append((float(value.detach()), x.grad.cpu().numpy()))
+            (v_card, g_card), (v_host, g_host) = out
+            v_rel = relative(v_card, v_host)
+            g_err = np.abs(g_card - g_host) - 1e-5 * np.abs(g_host)
+            worst[f"{name}@{shape}"] = dict(
+                value_relative_difference=v_rel,
+                gradient_max_abs_difference=float(
+                    np.abs(g_card - g_host).max()))
+            if v_rel > 1e-5 or g_err.max() > 1e-6:
+                fail(f"loss {name} at the {shape} shape, card vs host: "
+                     f"{worst[f'{name}@{shape}']}")
+    print("losses card vs host: " + json.dumps(worst), flush=True)
+
+    tables = {"entity_embedder.weights": (E, DIM),
+              "relation_embedder.weights": (FB15K237["relations"], DIM)}
+    init = {name: 0.1 * rng.standard_normal(shape).astype(np.float32)
+            for name, shape in tables.items()}
+    grads = [{name: rng.standard_normal(shape).astype(np.float32)
+              for name, shape in tables.items()} for _ in range(5)]
+    worst = {}
+    for opt_name, args in OPTIMIZERS.items():
+        c = config(**{
+            "train.optimizer.default.type": opt_name.split("-")[0],
+            **{f"train.optimizer.default.args.{k}": v
+               for k, v in args.items()},
+            "train.optimizer.relation": {
+                "regex": ".*relation_embedder.*",
+                "args": {"lr": args["lr"] / 2}}})
+        out = []
+        for dev in (device, torch.device("cpu")):
+            params = {name: torch.tensor(a, device=dev, requires_grad=True)
+                      for name, a in init.items()}
+            optimizer = KgeOptimizer(c, params)
+            state = optimizer.init()
+            for step, g in enumerate(grads):
+                for name, p in params.items():
+                    p.grad = torch.tensor(g[name], device=dev)
+                scale = (1.0, 0.5, 1.5, 0.25, 1.0)[step]
+                optimizer.step(state, {
+                    group: base * scale
+                    for group, base in optimizer.base_lrs.items()})
+            out.append([p.detach().cpu().numpy() for p in params.values()]
+                       + [np.asarray(x) for x in tree_leaves(
+                           optimizer.state_to_checkpoint(state))])
+        err = 0.0
+        for a, b in zip(*out):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"optimizer {opt_name}: state layouts differ")
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            err = max(err, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, rtol=1e-5, atol=1e-7):
+                fail(f"optimizer {opt_name}: card vs host differ beyond rtol "
+                     f"1e-5, atol 1e-7 (max abs difference {err})")
+        worst[opt_name] = dict(leaves=len(out[0]), max_abs_difference=err)
+    print("optimizers card vs host after 5 steps: " + json.dumps(worst),
+          flush=True)
+    return dict(losses=len(LOSSES), optimizers=len(OPTIMIZERS))
 
 
 # ----------------------------------------------------------------- wikidata5m
@@ -1457,7 +1930,8 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         dense_card_ms_per_step=dense["ms_per_step"],
         dense_over_sparse=dense["ms_per_step"]
         / (1e3 * epoch["epoch_time"] / steps))), flush=True)
-    return dict(launches=start_counts["adagrad_row_update"])
+    return dict(launches=start_counts["adagrad_row_update"],
+                counts=start_counts, valid_counts=valid_counts)
 
 
 def main():
@@ -1505,16 +1979,33 @@ def main():
     k2 = kernel_phase(rc, args.seed, device)
     k1 = k1_phase(nl, args.seed, device)
     k3 = k3_phase(ru, args.seed, device)
+    losses_optimizers_phase(args.seed, device)
     os.makedirs(os.path.join(REPO, "local"), exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke-",
                                dir=os.path.join(REPO, "local"))
     try:
         ev = eval_phase(rc, kernels, args.seed, device, scratch)
-        tr = train_phase(kernels, args.seed, scratch, ev["dataset_folder"])
+        graph = ev["dataset_folder"]
+        tr = train_phase(kernels, args.seed, scratch, graph)
         sgd = sgd_phase(kernels, scratch, tr["config_file"])
+        kv = kvsall_phase(kernels, args.seed, scratch, graph)
+        one = onevsall_phase(kernels, args.seed, scratch, graph)
+        tri = triple_phase(kernels, args.seed, scratch, graph)
         w5m = w5m_phase(kernels, args.seed, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    # each kernel's launches in every run that drives a path, the counts
+    # set to 0 before the run and read after it
+    by_phase = {
+        "eval": ev["counts"], "train_negsamp": tr["counts"],
+        "sgd_sparse": sgd["counts"], "kvsall": kv["start"],
+        "kvsall_resume": kv["resume"], "1vsall": one["start"],
+        "triple_sparse": tri["start"], "wikidata5m": w5m["counts"],
+        "wikidata5m_valid": w5m["valid_counts"]}
+
+    def phases(name):
+        return {phase: c[name] for phase, c in by_phase.items()}
 
     print(json.dumps({"kernels": [dict(
         name="rank_counts", route="cuda",
@@ -1525,6 +2016,7 @@ def main():
         bound_by=k2["bound_by"], library_ms=k2["library_ms"],
         kernel_us=k2["kernel_us"], host_us=k2["host_us"],
         library_kernel_us=k2["library_kernel_us"],
+        launches_by_phase=phases("rank_counts"),
     ), dict(
         name="shared_ce_loss", route="cuda",
         source="kge_tpu_torch/csrc/negsamp_loss.cu",
@@ -1534,11 +2026,13 @@ def main():
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
         kernel_us=k1["kernel_us"], host_us=k1["host_us"],
         library_kernel_us=k1["library_kernel_us"],
+        launches_by_phase=phases("shared_ce_loss"),
     )] + [dict(
         name=f"row_update_{optimizer}", route="cuda",
         source="kge_tpu_torch/csrc/row_update.cu",
         replaces=f"kge_tpu/ops/pallas/row_update.py:{line}",
         launches=launches, **k3[optimizer],
+        launches_by_phase=phases(f"{optimizer}_row_update"),
     ) for optimizer, line, launches in (
         ("adagrad", 60, w5m["launches"]), ("sgd", 78, sgd["launches"]))]}),
         flush=True)

@@ -6,17 +6,34 @@ Parameters fall into regex-defined groups: a named group declared under
 matches its regex (overlaps are an error); the rest fall into
 ``default``. Each group has its own base learning rate and arguments.
 
-Ported: dense Adagrad with torch semantics, ``sum += g^2; p -= lr * g /
-(sqrt(sum) + eps)``, and dense plain SGD, ``p -= lr * g`` (``optax.identity``
-in ``kge_tpu``), each after ``g += weight_decay * p`` when weight decay is
-set (``optax.add_decayed_weights``). The state is one plain ``sum``
-tensor per parameter for Adagrad and nothing for SGD; the training job
-holds it and passes it in. Parameters named in ``sparse_paths`` (the
-embedding tables of a row-sparse run) are left out of the dense step:
-``sparse_row_update`` updates the rows a batch touched in every such
-table, through one launch of the row-update kernel
-(``ops/row_update.py``). SGD momentum and the other
-optimizer types raise "not yet ported".
+Every optimizer type of ``kge_tpu`` is here, with the formulas of the
+optax transforms it chains (``kge_tpu/train/optimizer.py:61-114``),
+written out in torch and applied in place:
+
+- Adagrad with torch semantics: ``sum += g^2; u = g / (sqrt(sum) + eps)``;
+- Adam and AdamW (``scale_by_adam``): ``mu = (1-b1) g + b1 mu``,
+  ``nu = (1-b2) g^2 + b2 nu``, ``u = mu_hat / (sqrt(nu_hat) + eps)``
+  with the bias corrections ``1 - b**count`` computed in float32;
+- Adamax (``scale_by_adamax``): ``nu = max(|g| + eps, b2 nu)``,
+  ``u = mu_hat / nu``;
+- RMSprop (``scale_by_rms``): ``nu = (1-alpha) g^2 + alpha nu``,
+  ``u = g * rsqrt(nu + eps)`` (eps inside the root, no bias correction);
+- Adadelta (``scale_by_adadelta``): ``u = sqrt(e_x + eps) / sqrt(e_g +
+  eps) * g`` between the updates of ``e_g`` and ``e_x``;
+- SGD: ``u = g``, or with ``momentum`` (``trace``) ``t = g + m t`` and
+  ``u = t`` (``u = g + m t`` with ``nesterov``).
+
+``weight_decay`` adds ``wd * p`` to ``g`` before the preconditioner for
+every type but AdamW, which adds ``(wd or 1e-2) * p`` to ``u`` after it;
+then ``p -= lr * u``. The state is ``{slot: {parameter name: tensor}}``
+(the slots of the type: ``sum``; ``mu``, ``nu``; ``nu``; ``e_g``,
+``e_x``; ``trace``) plus, for the Adam family, ``{"count": {group: int32
+scalar}}`` on the host; the training job holds it and passes it in.
+Parameters named in ``sparse_paths`` (the embedding tables of a
+row-sparse run, Adagrad and plain SGD only) are left out of the dense
+step: ``sparse_row_update`` updates the rows a batch touched in every
+such table, through one launch of the row-update kernel
+(``ops/row_update.py``).
 
 Checkpoints store the state in ``kge_tpu``'s leaf order (see
 ``opt_state_tree``): ``kge_tpu`` reads ``opt_state`` by position, after
@@ -35,9 +52,32 @@ from kge_tpu_torch.config import Config
 from kge_tpu_torch.ops.row_update import row_update_groups
 from kge_tpu_torch.utils.params import tree_leaves
 
+#: per-parameter state slots of each optimizer type, in optax's order
+STATE_SLOTS = {"adagrad": ("sum",), "adam": ("mu", "nu"),
+               "adamw": ("mu", "nu"), "adamax": ("mu", "nu"),
+               "rmsprop": ("nu",), "adadelta": ("e_g", "e_x"), "sgd": ()}
+#: types whose optax state holds a step count (an int32 scalar per group)
+COUNTED = ("adam", "adamw", "adamax")
+INT32_MAX = 2 ** 31 - 1
+
 
 def _path_key(name: str) -> Tuple[str, ...]:
     return tuple(name.split("."))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in float32, as optax computes it: torch's
+    float32 ``pow`` on the host rounds as XLA's does (numpy's differs in
+    the last bit at some counts, which ``1 - x`` magnifies)."""
+    power = torch.pow(torch.tensor(decay, dtype=torch.float32),
+                      torch.tensor(float(count)))
+    return float(1 - power)
+
+
+def _betas(args: Mapping[str, Any]) -> Tuple[float, float]:
+    """The Adam family's ``(b1, b2)`` from a group's ``args``."""
+    b1, b2 = args.get("betas", (0.9, 0.999))
+    return float(b1), float(b2)
 
 
 def _group_args(config: Config) -> List[Dict[str, Any]]:
@@ -67,8 +107,9 @@ def sparse_unsupported_reason(config: Config) -> Optional[str]:
 
 
 class KgeOptimizer:
-    """Regex parameter groups, dense Adagrad or plain SGD over named
-    parameters, and row-sparse updates of the ``sparse_paths`` tables."""
+    """Regex parameter groups, the dense step of every optimizer type over
+    named parameters, and row-sparse updates of the ``sparse_paths``
+    tables."""
 
     def __init__(self, config: Config, params: Mapping[str, torch.Tensor],
                  sparse_paths: Sequence[str] = ()):
@@ -81,18 +122,8 @@ class KgeOptimizer:
                 raise ValueError(f"sparse updates unsupported: {reason}")
         opt_type = config.get("train.optimizer.default.type")
         self.opt_type = opt_type.lower()
-        if self.opt_type not in ("adagrad", "sgd"):
-            raise NotImplementedError(
-                f"train.optimizer type {opt_type} is not yet ported to "
-                "kge_tpu_torch (Adagrad and SGD are)"
-            )
-        if self.opt_type == "sgd" and any(
-                args.get("momentum", 0.0) or args.get("nesterov", False)
-                for args in _group_args(config)):
-            raise NotImplementedError(
-                "SGD momentum and nesterov are not yet ported to "
-                "kge_tpu_torch (plain SGD is)"
-            )
+        if self.opt_type not in STATE_SLOTS:
+            raise ValueError(f"unsupported optimizer type {opt_type}")
         group_specs: List[Tuple[str, re.Pattern, Dict]] = []
         for name in config.get("train.optimizer").keys():
             if name == "default":
@@ -135,42 +166,108 @@ class KgeOptimizer:
     def _arg(self, name: str, key: str, default: float) -> float:
         return float(self._group_args[self.group_of[name]].get(key, default))
 
-    def init(self) -> Dict[str, torch.Tensor]:
-        """The Adagrad accumulators: parameter name -> ``sum`` tensor (the
-        sparse tables' included); SGD keeps no state."""
+    def _slots(self, group: str) -> Tuple[str, ...]:
+        """The per-parameter state slots of ``group`` (SGD keeps a trace
+        only in a group with momentum)."""
         if self.opt_type == "sgd":
-            return {}
-        return {
-            name: torch.full_like(
-                p, self._arg(name, "initial_accumulator_value", 0.0)
-            ).detach()
-            for name, p in self.params.items()
-        }
+            return ("trace",) if self._group_args[group].get(
+                "momentum", 0.0) else ()
+        return STATE_SLOTS[self.opt_type]
+
+    def init(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The optimizer state: ``{slot: {parameter name: tensor}}`` (the
+        sparse tables' Adagrad sums included) and, for the Adam family,
+        ``{"count": {group: 0-d int32 tensor on the host}}``."""
+        state: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, p in self.params.items():
+            for slot in self._slots(self.group_of[name]):
+                fill = (self._arg(name, "initial_accumulator_value", 0.0)
+                        if slot == "sum" else 0.0)
+                state.setdefault(slot, {})[name] = torch.full_like(
+                    p, fill).detach()
+        if self.opt_type in COUNTED:
+            state["count"] = {g: torch.zeros((), dtype=torch.int32)
+                              for g in self.group_names}
+        return state
 
     @torch.no_grad()
-    def step(self, state: Dict[str, torch.Tensor], lrs: Dict[str, float]):
+    def step(self, state: Dict[str, Dict[str, torch.Tensor]],
+             lrs: Dict[str, float]):
         """One dense update, in place, of every parameter outside
         ``sparse_paths`` from its ``.grad`` (a parameter without one
         counts as a zero gradient)."""
+        # the Adam family's bias corrections (1 - b1**count, 1 - b2**count),
+        # once a group
+        corrections = {}
+        if self.opt_type in COUNTED:
+            for group, count in state["count"].items():
+                count.fill_(min(int(count) + 1, INT32_MAX))
+                corrections[group] = tuple(
+                    _bias_correction(b, int(count))
+                    for b in _betas(self._group_args[group]))
         for name, p in self.params.items():
             if name in self.sparse_paths:
                 continue
+            group = self.group_of[name]
+            args = self._group_args[group]
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            weight_decay = self._arg(name, "weight_decay", 0.0)
-            if weight_decay:
+            weight_decay = float(args.get("weight_decay", 0.0))
+            if weight_decay and self.opt_type != "adamw":
                 g = g + weight_decay * p
-            lr = lrs[self.group_of[name]]
-            if self.opt_type == "sgd":
-                p.sub_(lr * g)
-                continue
-            acc = state[name]
+            u = self._precondition(name, g, state, args,
+                                   corrections.get(group))
+            if self.opt_type == "adamw":
+                u = u + (weight_decay or 1e-2) * p
+            p.sub_(lrs[group] * u)
+
+    def _precondition(self, name: str, g: torch.Tensor,
+                      state: Dict[str, Dict[str, torch.Tensor]],
+                      args: Dict[str, Any],
+                      correction: Optional[Tuple[float, float]]
+                      ) -> torch.Tensor:
+        """The lr-free update of one parameter; advances its state.
+        ``correction`` is its group's Adam bias corrections."""
+        kind = self.opt_type
+        if kind == "adagrad":
+            acc = state["sum"][name]
             acc.add_(g * g)
-            eps = self._arg(name, "eps", 1e-10)
-            p.sub_(lr * (g / (acc.sqrt() + eps)))
+            return g / (acc.sqrt() + float(args.get("eps", 1e-10)))
+        if kind in COUNTED:
+            b1, b2 = _betas(args)
+            eps = float(args.get("eps", 1e-8))
+            mu, nu = state["mu"][name], state["nu"][name]
+            mu.mul_(b1).add_((1 - b1) * g)
+            mu_hat = mu / correction[0]
+            if kind == "adamax":
+                torch.maximum(g.abs() + eps, b2 * nu, out=nu)
+                return mu_hat / nu
+            nu.mul_(b2).add_((1 - b2) * (g * g))
+            nu_hat = nu / correction[1]
+            return mu_hat / (nu_hat.sqrt() + eps)
+        if kind == "rmsprop":
+            decay = float(args.get("alpha", 0.99))
+            nu = state["nu"][name]
+            nu.mul_(decay).add_((1 - decay) * (g * g))
+            return torch.rsqrt(nu + float(args.get("eps", 1e-8))) * g
+        if kind == "adadelta":
+            rho, eps = float(args.get("rho", 0.9)), float(args.get("eps", 1e-6))
+            e_g, e_x = state["e_g"][name], state["e_x"][name]
+            e_g.mul_(rho).add_((1 - rho) * (g * g))
+            u = torch.sqrt(e_x + eps) / torch.sqrt(e_g + eps) * g
+            e_x.mul_(rho).add_((1 - rho) * (u * u))
+            return u
+        momentum = float(args.get("momentum", 0.0))
+        if not momentum:
+            return g
+        trace = state["trace"][name]
+        trace.mul_(momentum).add_(g)
+        if args.get("nesterov", False):
+            return g + momentum * trace
+        return trace
 
     @torch.no_grad()
     def sparse_row_update(
-            self, state: Dict[str, torch.Tensor],
+            self, state: Dict[str, Dict[str, torch.Tensor]],
             rows: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
             lrs: Dict[str, float]):
         """The optimizer step on the touched rows of every sparse table of
@@ -183,7 +280,7 @@ class KgeOptimizer:
         gradients."""
         sgd = self.opt_type == "sgd"
         groups = [
-            (self.params[name], None if sgd else state[name], uniq,
+            (self.params[name], None if sgd else state["sum"][name], uniq,
              row_grads, lrs[self.group_of[name]],
              self._arg(name, "eps", 1e-10))
             for name, (uniq, row_grads) in rows.items()]
@@ -191,58 +288,73 @@ class KgeOptimizer:
 
     # ------------------------------------------------------------------ state
 
-    def opt_state_tree(self, state: Mapping[str, Any]) -> Dict[str, Any]:
+    def opt_state_tree(self, state: Mapping[str, Mapping[str, Any]]
+                       ) -> Dict[str, Any]:
         """``state`` in a tree of plain dicts whose leaves, flattened by
         ``tree_leaves`` (JAX's order), line up with those of ``kge_tpu``'s
-        ``KgeOptimizer.init(params)``: ``{group: {"sum": {path...}}}``, and
-        in a row-sparse run ``{"sparse": {path: {"sum": ...}}, "tx":
-        {group: {"sum": {path...}}}}`` with the sparse tables under
-        ``"sparse"`` only. Groups sort by name, parameters by path; optax's
-        empty states, masked-out parameters and SGD give no leaves."""
-        dense: Dict[str, Any] = {g: {"sum": {}} for g in self.group_names}
+        ``KgeOptimizer.init(params)``: ``{group: {slot: {path...}}}`` with
+        the Adam family's ``count`` (an int32 scalar) in each group
+        before ``mu`` and ``nu`` (optax's field order, which here is also
+        the sorted order of the keys), and in a row-sparse run
+        ``{"sparse": {path: {"sum": ...}}, "tx": {group: ...}}`` with the
+        sparse tables under ``"sparse"`` only. Groups sort by name,
+        parameters by path; optax's empty states, masked-out parameters
+        and stateless transforms give no leaves."""
+        dense: Dict[str, Any] = {
+            g: {slot: {} for slot in self._slots(g)}
+            for g in self.group_names}
+        for g, count in state.get("count", {}).items():
+            dense[g]["count"] = count
         sparse: Dict[str, Any] = {path: {} for path in self.sparse_paths}
         for name in sorted(self.params, key=_path_key):
-            if name not in state:
-                continue
-            if name in self.sparse_paths:
-                sparse[name]["sum"] = state[name]
-                continue
-            node = dense[self.group_of[name]]["sum"]
-            *parents, leaf = name.split(".")
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = state[name]
+            for slot in self._slots(self.group_of[name]):
+                if name not in state.get(slot, {}):
+                    continue
+                if name in self.sparse_paths:
+                    sparse[name][slot] = state[slot][name]
+                    continue
+                node = dense[self.group_of[name]][slot]
+                *parents, leaf = name.split(".")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = state[slot][name]
         if self.sparse_paths:
             return {"sparse": sparse, "tx": dense}
         return dense
 
-    def state_to_checkpoint(self, state: Dict[str, torch.Tensor]
+    def state_to_checkpoint(self, state: Dict[str, Dict[str, torch.Tensor]]
                             ) -> Dict[str, Any]:
-        return self.opt_state_tree(
-            {k: v.detach().cpu().numpy() for k, v in state.items()}
-        )
+        return self.opt_state_tree({
+            slot: {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+            for slot, tensors in state.items()})
 
-    def load_state(self, state: Dict[str, torch.Tensor], opt_state: Any):
+    def load_state(self, state: Dict[str, Dict[str, torch.Tensor]],
+                   opt_state: Any):
         """Copy a checkpoint's ``opt_state`` (written by either package,
         by a dense or a row-sparse run) into ``state``, leaf by leaf in
         JAX's order."""
-        names = tree_leaves(self.opt_state_tree({n: n for n in state}))
+        targets = tree_leaves(self.opt_state_tree({
+            slot: {k: f"{slot}/{k}" for k in tensors}
+            for slot, tensors in state.items()}))
         leaves = tree_leaves(opt_state)
-        if len(leaves) != len(names):
+        if len(leaves) != len(targets):
             raise ValueError(
                 f"optimizer state in checkpoint has {len(leaves)} leaves, "
-                f"expected {len(names)} (optimizer config changed?)"
+                f"expected {len(targets)} (optimizer config changed?)"
             )
         with torch.no_grad():
-            for name, leaf in zip(names, leaves):
+            for target_name, leaf in zip(targets, leaves):
+                slot, key = target_name.split("/", 1)
+                target = state[slot][key]
                 array = np.asarray(leaf)
-                if tuple(array.shape) != tuple(state[name].shape):
+                if tuple(array.shape) != tuple(target.shape):
                     raise ValueError(
-                        f"optimizer state for {name} has shape "
-                        f"{array.shape}, expected {tuple(state[name].shape)}"
+                        f"optimizer state {slot} of {key} has shape "
+                        f"{array.shape}, expected {tuple(target.shape)}"
                     )
-                state[name].copy_(torch.from_numpy(
-                    np.ascontiguousarray(array, dtype=np.float32)))
+                dtype = np.int32 if slot == "count" else np.float32
+                target.copy_(torch.from_numpy(
+                    np.asarray(array, dtype=dtype, order="C")))
 
 
 class KgeLRScheduler:

@@ -11,9 +11,9 @@ batches in both packages. Batches keep ``kge_tpu``'s fixed-shape layout:
   per-row ``gather`` column map or the per-row candidate multiplicities
   (``counts``, what the fused loss consumes).
 
-Ported: the uniform sampler, shared and not shared. Filtering of
-positives, the frequency sampler and on-device sampling raise "not yet
-ported".
+The uniform sampler (shared and not shared), the frequency sampler (not
+shared) and the filtering of known positives are here; on-device
+sampling (``kge_tpu``'s ``device_shared_sample``) is not.
 """
 
 from __future__ import annotations
@@ -122,6 +122,7 @@ class KgeSampler(Configurable):
         super().__init__(config, configuration_key)
         self.dataset = dataset
         self.num_samples = np.zeros(3, dtype=np.int64)
+        self.filter_positives = np.zeros(3, dtype=bool)
         self.vocabulary_size = np.zeros(3, dtype=np.int64)
         self.shared = self.get_option("shared")
         self.shared_type = self.check_option("shared_type",
@@ -132,18 +133,23 @@ class KgeSampler(Configurable):
                 "without-replacement sampling requires shared negative "
                 "sampling"
             )
+        self.filtering_split = config.get("negative_sampling.filtering.split")
+        if self.filtering_split == "":
+            self.filtering_split = config.get("train.split")
         for slot in SLOTS:
             slot_str = SLOT_STR[slot]
             self.num_samples[slot] = self.get_option(f"num_samples.{slot_str}")
-            if self.get_option(f"filtering.{slot_str}"):
-                raise NotImplementedError(
-                    "negative_sampling.filtering is not yet ported to "
-                    "kge_tpu_torch"
-                )
+            self.filter_positives[slot] = self.get_option(
+                f"filtering.{slot_str}")
             self.vocabulary_size[slot] = (
                 dataset.num_relations() if slot == P
                 else dataset.num_entities()
             )
+            if self.filter_positives[slot]:
+                pair = ["po", "so", "sp"][slot]
+                dataset.index(f"{self.filtering_split}_{pair}_to_{slot_str}")
+        if self.filter_positives.any() and self.shared:
+            raise ValueError("filtering is incompatible with shared sampling")
         # auto-complete sample counts (-1: copy from S)
         for slot, copy_from in [(S, O), (P, None), (O, S)]:
             if self.num_samples[slot] < 0:
@@ -165,9 +171,7 @@ class KgeSampler(Configurable):
         if sampling_type == "uniform":
             return KgeUniformSampler(config, configuration_key, dataset)
         if sampling_type == "frequency":
-            raise NotImplementedError(
-                "the frequency sampler is not yet ported to kge_tpu_torch"
-            )
+            return KgeFrequencySampler(config, configuration_key, dataset)
         raise ValueError(configuration_key + ".sampling_type")
 
     def sample(self, positive_triples: np.ndarray, slot: int,
@@ -177,6 +181,9 @@ class KgeSampler(Configurable):
         if self.shared:
             return self._sample_shared(positive_triples, slot, num_samples)
         negatives = self._sample(positive_triples, slot, num_samples)
+        if self.filter_positives[slot]:
+            negatives = self._filter_and_resample(
+                negatives, slot, positive_triples)
         return BatchNegativeSample(slot, num_samples, negatives=negatives)
 
     def _sample(self, positive_triples: np.ndarray, slot: int,
@@ -185,7 +192,50 @@ class KgeSampler(Configurable):
 
     def _sample_shared(self, positive_triples: np.ndarray, slot: int,
                        num_samples: int) -> BatchNegativeSample:
-        raise NotImplementedError
+        raise NotImplementedError(
+            "the selected sampler does not support shared sampling"
+        )
+
+    def _filter_and_resample(self, negatives: np.ndarray, slot: int,
+                             positive_triples: np.ndarray) -> np.ndarray:
+        """Redraw the entries that are known positives of their row's
+        pair, in place: each round draws one fresh value for every
+        position still bad in one ``_sample`` call (``kge_tpu``'s draws, in
+        its order), for at most 1000 rounds, then warns."""
+        pair_str = ["po", "so", "sp"][slot]
+        index = self.dataset.index(
+            f"{self.filtering_split}_{pair_str}_to_{SLOT_STR[slot]}"
+        )
+        cols = [[P, O], [S, O], [S, P]][slot]
+        pos_rows, pos_vals = index.get_all_coords(positive_triples[:, cols])
+        if len(pos_rows) == 0:
+            return negatives
+        voc = int(self.vocabulary_size[slot])
+        pos_keys = np.sort(pos_rows.astype(np.int64) * voc + pos_vals)
+
+        def is_positive(rows, vals):
+            keys = rows.astype(np.int64) * voc + vals
+            i = np.minimum(np.searchsorted(pos_keys, keys),
+                           len(pos_keys) - 1)
+            return pos_keys[i] == keys
+
+        B, K = negatives.shape
+        row_of = np.broadcast_to(np.arange(B)[:, None], (B, K))
+        bad_i, bad_j = np.nonzero(is_positive(row_of, negatives))
+        rounds = 0
+        while len(bad_i) and rounds < 1000:
+            fresh = self._sample(positive_triples[bad_i], slot, 1).reshape(-1)
+            ok = ~is_positive(bad_i, fresh)
+            negatives[bad_i[ok], bad_j[ok]] = fresh[ok]
+            bad_i, bad_j = bad_i[~ok], bad_j[~ok]
+            rounds += 1
+        if len(bad_i):
+            self.config.log(
+                f"WARNING: filtering could not replace {len(bad_i)} "
+                f"positive(s) in the negative sample "
+                f"(slot {SLOT_STR[slot]}) after 1000 rounds"
+            )
+        return negatives
 
 
 class KgeUniformSampler(KgeSampler):
@@ -259,3 +309,26 @@ class KgeUniformSampler(KgeSampler):
             dup = np.ones(take, dtype=bool)
             dup[first] = False
             out[dup] = self._rng.integers(voc, size=int(dup.sum()))
+
+
+class KgeFrequencySampler(KgeSampler):
+    """Samples in proportion to the smoothed frequency of each id in the
+    train split (reference: kge/util/sampler.py:755-793); not shared."""
+
+    def __init__(self, config, configuration_key, dataset):
+        super().__init__(config, configuration_key, dataset)
+        self._cdf = [None, None, None]
+        smoothing = self.get_option("frequency.smoothing")
+        train = dataset.split(config.get("train.split"))
+        for slot in SLOTS:
+            counts = np.bincount(
+                train[:, slot], minlength=int(self.vocabulary_size[slot])
+            ).astype(np.float64) + smoothing
+            self._cdf[slot] = np.cumsum(counts / counts.sum())
+
+    def _sample(self, positive_triples, slot, num_samples):
+        u = self._rng.random((len(positive_triples), num_samples))
+        idx = np.searchsorted(self._cdf[slot], u)
+        # the float64 CDF's last entry can land below 1.0, letting
+        # searchsorted return vocabulary_size; clamp to the last id
+        return np.minimum(idx, self.vocabulary_size[slot] - 1).astype(np.int32)

@@ -19,10 +19,14 @@ come back in one transfer when the epoch ends (NaN checks included).
 ``train.optimizer``, ``train.fetch``) name the phases a profile reads;
 they cost nothing without a profiler.
 
+``tpu.steps_per_dispatch`` (``_steps_per_dispatch``, as in ``kge_tpu``)
+decides no dispatch here: the port runs one step a batch. It still
+orders KvsAll's batches, which ``kge_tpu`` regroups into runs of one
+compiled shape; the port draws the same order.
+
 Not ported here: meshes and multi-host runs, grouped and device-resident
-dispatch (``tpu.steps_per_dispatch`` is logged as ignored: ``kge_tpu``
-gives the same numbers either way), the prefetch thread, row chunking,
-``tpu.profile_dir`` and ``tpu.compute_dtype: bfloat16``.
+dispatch, the prefetch thread, row chunking, ``tpu.profile_dir`` and
+``tpu.compute_dtype: bfloat16``.
 """
 
 from __future__ import annotations
@@ -76,9 +80,12 @@ def _refuse_unported(config: Config):
         raise NotImplementedError(
             "batch prefetching (tpu.prefetch_batches, train.num_workers) is "
             "not yet ported to kge_tpu_torch")
-    if int(config.get("tpu.steps_per_dispatch")) > 1:
-        config.log("tpu.steps_per_dispatch is ignored: kge_tpu_torch "
-                   "dispatches one step per batch")
+    group = int(config.get("tpu.steps_per_dispatch"))
+    if group > 1:
+        config.log(f"tpu.steps_per_dispatch {group}: kge_tpu_torch runs one "
+                   "step a batch in every trainer; KvsAll orders its batches "
+                   f"in runs of up to {group} of one query type and label "
+                   "width, as kge_tpu does")
     precision = config.check("tpu.matmul_precision",
                              ["default", "high", "highest"])
     if precision != "highest":
@@ -159,11 +166,6 @@ class TrainingJob(TrainingOrEvaluationJob):
                model: Optional[KgeModel] = None,
                forward_only: bool = False) -> "TrainingJob":
         train_type = config.get("train.type")
-        if train_type != "negative_sampling":
-            raise NotImplementedError(
-                f"train.type {train_type} is not yet ported to kge_tpu_torch "
-                "(negative_sampling is)"
-            )
         class_name = config.get_default(train_type + ".class_name")
         return init_from(
             class_name, config.modules(), config, dataset,
@@ -201,6 +203,16 @@ class TrainingJob(TrainingOrEvaluationJob):
         if self._np_seed < 0:
             return self._np_rng
         return np.random.default_rng((self._np_seed, epoch))
+
+    def _steps_per_dispatch(self) -> int:
+        """``kge_tpu``'s group size of a dispatch: ``tpu.steps_per_dispatch``,
+        or 1 where batch hooks must see every batch."""
+        group = int(self.config.get("tpu.steps_per_dispatch"))
+        if group <= 1:
+            return 1
+        if self.pre_batch_hooks or self.post_batch_hooks:
+            return 1  # hooks observe real batch boundaries
+        return group
 
     def _subbatch_loss(self, ctx: Ctx, batch: Dict[str, Any],
                        sub_slice: slice) -> torch.Tensor:

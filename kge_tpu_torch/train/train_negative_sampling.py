@@ -3,11 +3,20 @@
 kge/job/train_negative_sampling.py).
 
 Per slot with num_samples > 0, scores are arranged [B, 1+num] (the
-positive in column 0, the reference layout) and fed to the loss. Ported
-is the ``batch`` scoring implementation: shared negatives score the
-batch's unique sample once ([B, num+1]) and gather each row's columns;
-non-shared negatives score the flattened sample of the subbatch and
-gather each row's block.
+positive in column 0, the reference layout) and fed to the loss with
+``num_negatives``. Scoring implementations, as in ``kge_tpu``:
+
+- ``triple``: every corrupted triple scored on its own (``score_spo``
+  with the slot as ``direction``, the positive's other slots repeated);
+- ``all``: every candidate scored ([B, V]) and each row's sampled
+  columns gathered;
+- ``batch``: shared negatives score the batch's unique sample once
+  ([B, num+1]) and gather each row's columns; non-shared negatives score
+  the flattened sample of the subbatch and gather each row's block.
+
+Graph sampling (``negative_sampling.graph_sampling``) draws the epoch's
+triples from the epoch's generator (``train/graph_util.py``); no model of
+the port takes the subgraph itself yet.
 
 With shared negatives and the ``kl`` loss, the slots s and o can take
 the fused loss instead (``tpu.fused_negsamp_loss``): the scores, the
@@ -24,9 +33,8 @@ substitutes them for the tables, and the optimizer updates only them, in
 place (``KgeOptimizer.sparse_row_update``; the row-update kernel on a
 card). No [V, D] gradient exists in such a step.
 
-Not yet ported (they raise): the ``triple`` and ``all`` implementations,
-graph sampling and ``tpu.on_device_sampling: always``; under ``auto``
-the port samples on the host.
+Not yet ported (it raises): ``tpu.on_device_sampling: always``; under
+``auto`` the port samples on the host.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ from kge_tpu_torch.models import Ctx, KgeModel
 from kge_tpu_torch.models.embedder.lookup import LookupEmbedder
 from kge_tpu_torch.ops.gather import row_gather
 from kge_tpu_torch.ops.negsamp_loss import expand_counts, shared_ce_loss
+from kge_tpu_torch.train.graph_util import (
+    sample_edge_neighbourhood, sample_uniform,
+)
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.train.optimizer import sparse_unsupported_reason
 from kge_tpu_torch.train.sampler import SLOT_STR, SLOTS, KgeSampler, S, P, O
@@ -217,32 +228,38 @@ class TrainingJobNegativeSampling(TrainingJob):
                 "negative_sampling.implementation", self._implementation,
                 log=True,
             )
-        if self._implementation != "batch":
-            raise NotImplementedError(
-                f"negative_sampling.implementation {self._implementation} is "
-                "not yet ported to kge_tpu_torch (batch is)"
-            )
         self.config.log(
             f"Preparing negative sampling with '{self._implementation}' "
             "scoring..."
         )
         self._fused_slots = self._resolve_fused_loss_slots()
-        graph_sampling = self.config.check(
+        self.graph_sampling = self.config.check(
             "negative_sampling.graph_sampling",
             ["uniform", "edge_neighbourhood", "None"],
         )
-        if graph_sampling != "None":
-            raise NotImplementedError(
-                "negative_sampling.graph_sampling is not yet ported to "
-                "kge_tpu_torch"
-            )
+        if self.graph_sampling == "None":
+            self.graph_sampling = None
+        self.graph_sampling_size = self.config.get(
+            "negative_sampling.graph_sampling_size"
+        )
         if self.config.check("tpu.on_device_sampling",
                              ["auto", "always", "never"]) == "always":
             raise NotImplementedError(
                 "tpu.on_device_sampling always is not yet ported to "
                 "kge_tpu_torch (negatives are sampled on the host)"
             )
-        self.num_examples = len(self.dataset.split(self.train_split))
+        if self.graph_sampling:
+            self.num_examples = self.graph_sampling_size
+        else:
+            self.num_examples = len(self.dataset.split(self.train_split))
+
+    def _sample_graph(self, rng: np.random.Generator) -> np.ndarray:
+        """The epoch's subgraph, drawn from the epoch's generator (so a
+        resumed run draws the uninterrupted run's)."""
+        train = self.dataset.split(self.train_split)
+        sample = (sample_uniform if self.graph_sampling == "uniform"
+                  else sample_edge_neighbourhood)
+        return sample(train, self.graph_sampling_size, rng)
 
     def _resolve_fused_loss_slots(self):
         """Slots whose loss goes through the fused kernel
@@ -293,7 +310,10 @@ class TrainingJobNegativeSampling(TrainingJob):
             # negatives re-derive per epoch too (see _epoch_np_rng): a
             # resume at epoch k draws the uninterrupted run's corruptions
             self._sampler.seed((self._np_seed + 1, epoch))
-        triples_pool = self.dataset.split(self.train_split)
+        if self.graph_sampling:
+            triples_pool = self._sample_graph(rng)
+        else:
+            triples_pool = self.dataset.split(self.train_split)
         order = rng.permutation(len(triples_pool))[: self.num_examples]
         for idx, weights, true in self._pad_batch_indexes(order):
             triples = triples_pool[idx].astype(np.int32)
@@ -441,9 +461,18 @@ class TrainingJobNegativeSampling(TrainingJob):
         if f"neg_unique_{key}" in batch:
             all_scores = score(batch[f"neg_unique_{key}"])   # [rows, num+1]
             return row_gather(all_scores, batch[f"neg_gather_{key}"][sl])
-        # not shared: score the flattened sample of this subbatch
         negatives = batch[f"negatives_{key}"][sl]             # [rows, num]
         rows, num = negatives.shape
+        if self._implementation == "triple":
+            flat = negatives.reshape(-1)
+            rep = lambda x: torch.repeat_interleave(x, num)
+            spo = {S: (flat, rep(p), rep(o)), P: (rep(s), flat, rep(o)),
+                   O: (rep(s), rep(p), flat)}[slot]
+            return model.score_spo(*spo, direction=key,
+                                   ctx=ctx).reshape(rows, num)
+        if self._implementation == "all":
+            return row_gather(score(None), negatives)         # of [rows, V]
+        # batch: score the flattened sample of this subbatch
         all_scores = score(negatives.reshape(-1))             # [rows, rows*num]
         cols = (
             torch.arange(rows, device=negatives.device)[:, None] * num

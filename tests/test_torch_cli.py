@@ -157,12 +157,14 @@ def test_dump_config_and_unported_verbs(jax_folder, capsys, tmp_path):
     out = capsys.readouterr().out
     assert "lookup_embedder.dim: 16" in out
     assert "kge_tpu." not in out
-    # the toy example trains KvsAll, which the port does not have yet
-    with pytest.raises(NotImplementedError,
-                       match="KvsAll is not yet ported"):
-        cli.main(["start", "examples/toy-complex-train.yaml",
-                  "--folder", str(tmp_path / "kvsall"),
-                  "--job.device", "cpu"])
+    # the toy example trains KvsAll with Adagrad: one epoch on the host
+    folder = str(tmp_path / "kvsall")
+    result = cli.main(["start", "examples/toy-complex-train.yaml",
+                       "--folder", folder, "--job.device", "cpu",
+                       "--train.max_epochs", "1", "--console.quiet", "true"])
+    assert result["epoch"] == 1 and result["type"] == "KvsAll"
+    assert np.isfinite(result["avg_loss"])
+    assert os.path.isfile(os.path.join(folder, "checkpoint_00001.pt"))
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["package", os.path.join(jax_folder, "checkpoint_best.pt")])
 
@@ -257,6 +259,63 @@ def test_cli_trains_and_resumes_without_importing_kge_tpu(tmp_path):
     JaxJob.create(config, JaxDataset.create(config)).run()
     (jax_epoch,) = epoch_entries(jax_folder)
     assert set(port_epochs[0]) == set(jax_epoch)
+
+
+STRATEGY_SCRIPT = """
+import json, sys
+from kge_tpu_torch import cli
+
+folder = sys.argv[1]
+toy = "examples/toy-complex-train.yaml"
+cpu = ["--job.device", "cpu", "--console.quiet", "true",
+       "--lookup_embedder.dim", "16", "--valid.every", "1"]
+runs = {
+    "kvsall-adam": ["--train.loss", "bce", "--KvsAll.label_smoothing", "0.1",
+                    "--train.optimizer.default.type", "Adam",
+                    "--train.optimizer.default.args.lr", "0.01"],
+    "1vsall": ["--train.type", "1vsAll"],
+    "triple": ["--train.type", "negative_sampling"],
+}
+epochs = {}
+for name, options in runs.items():
+    run = folder + "/" + name
+    started = cli.main(["start", toy, "--folder", run,
+                        "--train.max_epochs", "1", *options, *cpu])
+    resumed = cli.main(["resume", run, "--train.max_epochs", "2", *cpu])
+    epochs[name] = [started["epoch"], resumed["epoch"], resumed["type"]]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
+print(json.dumps(dict(loaded=loaded, epochs=epochs)))
+"""
+
+
+def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
+    """start and resume of a KvsAll run with bce and Adam, a 1vsAll run
+    and a run of the default sampler (``triple`` scoring), in a
+    subprocess that loads no JAX module; kge_tpu resumes each port
+    checkpoint."""
+    folder = str(tmp_path / "runs")
+    r = _run(["-c", STRATEGY_SCRIPT, folder],
+             env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    result = json.loads(r.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert result["epochs"] == {"kvsall-adam": [1, 2, "KvsAll"],
+                                "1vsall": [1, 2, "1vsAll"],
+                                "triple": [1, 2, "negative_sampling"]}
+    with open(os.path.join(folder, "triple", "kge.log")) as f:
+        assert "Preparing negative sampling with 'triple' scoring" in f.read()
+    for name in ("kvsall-adam", "1vsall", "triple"):
+        checkpoint = jax_load_checkpoint(
+            os.path.join(folder, name, "checkpoint_00002.pt"))
+        checkpoint.pop("folder")
+        config = JaxConfig.create_from(checkpoint)
+        config.set("train.max_epochs", 3)
+        config.set("job.device", "cpu")
+        job = JaxJob.create_from(checkpoint, new_config=config,
+                                 dataset=JaxDataset.create(config))
+        assert job.epoch == 2
+        assert np.isfinite(job.run()["avg_loss"]) and job.epoch == 3
 
 
 def _resume(package, checkpoint_file, dataset, sparse_updates):

@@ -3,7 +3,9 @@
 sampler seeded alike draws identical arrays; Adagrad steps on the same
 gradients agree; every scheduler gives the same lr_scale sequence; the
 checkpointed optimizer state has kge_tpu's leaves in kge_tpu's order,
-both ways; the kl loss agrees for index and matrix labels.
+both ways; the kl loss agrees for index and matrix labels; what kge_tpu
+refuses, the port refuses with the same error. (Every optimizer type:
+tests/test_torch_optimizers.py; every loss: tests/test_torch_losses.py.)
 """
 
 import os
@@ -98,12 +100,24 @@ def test_seeded_sampler_draws_identical_batches(options):
 
 
 def test_unported_sampling_raises():
-    for options in ({"negative_sampling.filtering.o": True},
-                    {"negative_sampling.sampling_type": "frequency"}):
-        _, pconfig = configs(options)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The sampler options that kge_tpu refuses, refused alike: filtering
+    with shared sampling (at construction), the frequency sampler with
+    shared sampling (when it samples)."""
+    shared = {"negative_sampling.shared": True}
+    for options, error, match in (
+            ({"negative_sampling.filtering.o": True}, ValueError,
+             "filtering is incompatible with shared sampling"),
+            ({"negative_sampling.sampling_type": "frequency"},
+             NotImplementedError, "does not support shared sampling")):
+        jconfig, pconfig = configs({**shared, **options})
+        with pytest.raises(error, match=match):
+            JaxKgeSampler.create(jconfig, "negative_sampling",
+                                 JaxDataset.create(jconfig, TOY)).sample(
+                np.zeros((4, 3), dtype=np.int32), 0)
+        with pytest.raises(error, match=match):
             KgeSampler.create(pconfig, "negative_sampling",
-                              Dataset.create(pconfig, TOY))
+                              Dataset.create(pconfig, TOY)).sample(
+                np.zeros((4, 3), dtype=np.int32), 0)
 
 
 # ------------------------------------------------------------------ optimizer
@@ -175,8 +189,8 @@ def test_opt_state_leaves_in_kge_tpu_order(options):
     opt = KgeOptimizer(pconfig, dict(model.named_parameters()))
     state = opt.init()
     # distinct values per parameter, so an order mix-up shows
-    for i, name in enumerate(sorted(state)):
-        state[name].fill_(i + 1.0)
+    for i, name in enumerate(sorted(state["sum"])):
+        state["sum"][name].fill_(i + 1.0)
     written = opt.state_to_checkpoint(state)
     jleaves = jax.tree_util.tree_leaves(jstate)
     leaves = tree_leaves(written)
@@ -192,18 +206,23 @@ def test_opt_state_leaves_in_kge_tpu_order(options):
             part, leaf = path.split(".")
             if label == group:
                 np.testing.assert_array_equal(
-                    np.asarray(sums[part][leaf]), state[path].numpy())
+                    np.asarray(sums[part][leaf]), state["sum"][path].numpy())
     # and back: the port reads kge_tpu's state (optax tuples and all)
     fresh = opt.init()
     opt.load_state(fresh, loaded)
-    for name in state:
-        np.testing.assert_array_equal(fresh[name].numpy(),
-                                      state[name].numpy())
+    for name in state["sum"]:
+        np.testing.assert_array_equal(fresh["sum"][name].numpy(),
+                                      state["sum"][name].numpy())
 
 
 def test_unported_optimizer_raises():
-    _, pconfig, _, model = models({"train.optimizer.default.type": "Adam"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Every optimizer type of kge_tpu is ported (tests/
+    test_torch_optimizers.py); an unknown type raises kge_tpu's error."""
+    jconfig, pconfig, tree, model = models(
+        {"train.optimizer.default.type": "Lion"})
+    with pytest.raises(ValueError, match="unsupported optimizer type Lion"):
+        JaxKgeOptimizer(jconfig, tree)
+    with pytest.raises(ValueError, match="unsupported optimizer type Lion"):
         KgeOptimizer(pconfig, dict(model.named_parameters()))
 
 
@@ -263,6 +282,14 @@ def test_kl_loss_matches_kge_tpu():
 
 
 def test_unported_loss_raises():
-    _, pconfig = configs({"train.loss": "margin_ranking"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        KgeLoss.create(pconfig)
+    """Every loss of kge_tpu is ported (tests/test_torch_losses.py);
+    margin ranking outside negative sampling raises kge_tpu's error."""
+    jconfig, pconfig = configs({"train.loss": "margin_ranking",
+                                "train.type": "KvsAll"})
+    scores = np.zeros((2, 3), dtype=np.float32)
+    labels = np.zeros(2, dtype=np.int64)
+    for loss, tensor in ((JaxKgeLoss.create(jconfig), jnp.asarray),
+                         (KgeLoss.create(pconfig), torch.tensor)):
+        with pytest.raises(NotImplementedError,
+                           match="only supported with negative sampling"):
+            loss(tensor(scores), tensor(labels))

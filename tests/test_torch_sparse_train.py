@@ -1,8 +1,8 @@
 """Row-sparse training (``tpu.sparse_updates``) in the port against
 kge_tpu's on data/toy: both run with ``always``, the same seed, and the
 JAX job's initial weights carried into the port; the cases are those of
-tests/test_sparse_updates.py that the port can run (it scores with the
-``batch`` implementation only).
+tests/test_sparse_updates.py with the ``batch`` scoring implementation
+(``triple``: tests/test_torch_negsamp_modes.py).
 
 Tolerances as for the dense trajectories (tests/test_torch_train.py): the
 first step's loss rtol 1e-6, each epoch's avg_loss rtol 1e-5, Adagrad's
@@ -112,7 +112,7 @@ def test_sparse_step_leaves_no_table_gradient():
     job._is_prepared = True
     job.epoch = 1
     batch_np = next(job._generate_batches(1))
-    sums = {k: v.clone() for k, v in job.opt_state.items()}
+    sums = {k: v.clone() for k, v in job.opt_state["sum"].items()}
     launches = (ru.adagrad_row_update.launches, ru.sgd_row_update.launches)
     job._step(job._put_batch(batch_np),
               {g: 0.1 for g in job.optimizer.base_lrs})
@@ -121,7 +121,8 @@ def test_sparse_step_leaves_no_table_gradient():
     touched = {"entity_embedder.weights": batch_np["uniq_e"],
                "relation_embedder.weights": batch_np["uniq_r"]}
     for name, ids in touched.items():
-        changed = (job.opt_state[name] != sums[name]).any(dim=1).numpy()
+        changed = (job.opt_state["sum"][name] != sums[name]).any(
+            dim=1).numpy()
         assert changed.any() and set(np.flatnonzero(changed)) <= set(ids)
     assert (ru.adagrad_row_update.launches,
             ru.sgd_row_update.launches) == launches == (0, 0)
@@ -247,9 +248,35 @@ def test_dense_sgd_matches_kge_tpu(tmp_path):
 
 @pytest.mark.parametrize("options", [
     {"train.optimizer.default.args.momentum": 0.9},
-    {"train.optimizer.default.args.nesterov": True},
+    {"train.optimizer.default.args.momentum": 0.9,
+     "train.optimizer.default.args.nesterov": True},
 ], ids=["momentum", "nesterov"])
-def test_sgd_momentum_is_not_yet_ported(options):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_job({"train.optimizer.default.type": "SGD",
-                  "tpu.sparse_updates": "never", **options})
+def test_sgd_momentum_is_not_yet_ported(options, tmp_path):
+    """SGD with momentum (and Nesterov's form of it) is ported: its dense
+    trajectory matches kge_tpu's (tables 1e-6, SGD being linear in g), and
+    row-sparse updates refuse it with kge_tpu's error."""
+    options = {"train.optimizer.default.type": "SGD",
+               "train.optimizer.default.args.lr": 0.1,
+               "train.trace_level": "batch",
+               "tpu.fused_negsamp_loss": "always", **options}
+    dense = {**options, "tpu.sparse_updates": "never"}
+    jax_run = jax_job(dense, str(tmp_path / "jax"))
+    port_run = port_job(
+        dense, str(tmp_path / "port"),
+        params=jax.tree_util.tree_map(np.asarray, jax_run.params))
+    want, got = record_epochs(jax_run), record_epochs(port_run)
+    jax_run.run()
+    port_run.run()
+    assert set(port_run.opt_state) == {"trace"}
+    np.testing.assert_allclose(first_batch_loss(port_run.config.folder),
+                               first_batch_loss(jax_run.config.folder),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert_tables_close(port_tables(port_run), jax_tables(jax_run),
+                        rtol=1e-6, atol=1e-6)
+    sparse = {**SPARSE, **options}
+    with pytest.raises(ValueError, match="SGD momentum decays") as want:
+        jax_job(sparse)
+    with pytest.raises(ValueError, match="SGD momentum decays") as got:
+        port_job(sparse)
+    assert str(got.value) == str(want.value)

@@ -202,8 +202,8 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
     for key in a:
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     np.testing.assert_array_equal(
-        full.opt_state["entity_embedder.weights"].numpy(),
-        resumed.opt_state["entity_embedder.weights"].numpy())
+        full.opt_state["sum"]["entity_embedder.weights"].numpy(),
+        resumed.opt_state["sum"]["entity_embedder.weights"].numpy())
 
 
 def _resume_both(checkpoint_file, jax_dataset, port_dataset):
@@ -248,23 +248,42 @@ def test_checkpoints_cross_over(tmp_path):
     assert jax_load_checkpoint(port_file)["rng"].dtype == np.uint32
 
 
+def _ids(options):
+    return "-".join(f"{k.split('.')[-1]}={v}" for k, v in options.items())
+
+
 @pytest.mark.parametrize("options", [
-    # row-sparse updates are ported (tests/test_torch_sparse_train.py);
-    # with the triple scoring, which is not, they still raise
-    pytest.param({"tpu.sparse_updates": "always",
-                  "negative_sampling.implementation": "triple"},
-                 id="sparse_updates=always"),
     {"tpu.on_device_sampling": "always"},
+    {"lookup_embedder.dropout": 0.1},
+    {"tpu.compute_dtype": "bfloat16"},
+    {"tpu.mesh.data": 2},
+    {"tpu.prefetch_batches": 2},
+    {"eval.type": "training_loss"},
+], ids=_ids)
+def test_unported_modes_raise(options):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        job = port_job(options)
+        job.run()
+
+
+@pytest.mark.parametrize("options", [
+    {"tpu.sparse_updates": "always",
+     "negative_sampling.implementation": "triple",
+     "negative_sampling.shared": False,
+     "lookup_embedder.regularize_args.weighted": True},
     {"train.loss": "bce"},
     {"train.optimizer.default.type": "Adam"},
     {"negative_sampling.implementation": "triple"},
     {"train.type": "KvsAll"},
     {"train.type": "1vsAll"},
-], ids=lambda o: "-".join(f"{k.split('.')[-1]}={v}" for k, v in o.items()))
-def test_unported_modes_raise(options):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        job = port_job(options)
-        job.run()
+], ids=_ids)
+def test_formerly_unported_modes_train(options):
+    """The modes this test file once listed as raising train an epoch
+    (tests/test_torch_kvsall.py and tests/test_torch_negsamp_modes.py hold
+    them against kge_tpu)."""
+    job = port_job({**options, "train.max_epochs": 1})
+    result = job.run()
+    assert result["epoch"] == 1 and np.isfinite(result["avg_loss"])
 
 
 def test_fused_loss_auto_is_off_on_the_cpu():
