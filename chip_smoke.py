@@ -4,9 +4,11 @@ their plain PyTorch versions.
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases k2,conve,...]
 
-Phases, each of which fails the run (non-zero exit) when it fails:
+``--phases`` runs a subset (see ``PHASES``; the kernels line needs them
+all). Phases, each of which fails the run (non-zero exit) when it fails
+(they run in the order of ``PHASES``; each prints its seconds):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of the port from ``kge_tpu_torch/csrc`` (one nvcc
@@ -56,8 +58,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through K1 (2 launches per step, 1064 in all) and every validation
    through K2; the losses must be finite and fall; ``resume`` continues
    to epoch 3; epoch 1 is re-run from ``checkpoint_00000.pt`` on the card
-   and on the host (plain K1) and the losses compared; a last epoch
-   under torch.profiler prints where a training epoch's time goes. At
+   and on the host (plain K1) and the losses compared. At
    this size ``tpu.sparse_updates: auto`` keeps the tables dense: K3 must
    not launch;
 7. K3 kernel phase (run before the eval phase): ``adagrad_row_update``
@@ -90,10 +91,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``start`` of ``examples/wikidata5m-complex-train.yaml`` as it is for
    one epoch, then ``valid``: row-sparse updates must be on, K3 Adagrad
    launched once a step for both tables (489 times), K1 978 times, K2 42
-   times, the loss finite and the MRR in (0, 1]; ``valid`` again under
-   torch.profiler gives K2's share of the validation's time. From the same ``checkpoint_00000.pt``, one epoch each
-   row-sparse on the card (profiled), dense on the card and row-sparse
-   on the host (plain K1 and K3): first batch within 1e-5 relative and
+   times, the loss finite and the MRR in (0, 1]. From the same
+   ``checkpoint_00000.pt``, one epoch each row-sparse on the card, dense
+   on the card and row-sparse on the host (plain K1 and K3): first batch within 1e-5 relative and
    epoch within 1e-3. Prints ms per step, triples/s, set-up and
    checkpoint-save seconds and peak device memory. It needs about 10 GB
    of disk under ``local/`` (two 4.9 GB checkpoints at a time);
@@ -115,24 +115,54 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    epoch 3 (K2 138 times); losses finite and falling, MRR in (0, 1];
    epoch 1 again from ``checkpoint_00000.pt`` on the card and on the
    host, its first 100 batches (a host epoch takes minutes): the first
-   batch within 1e-5 relative, their avg_loss within 1e-3; one epoch
-   under torch.profiler (ms a step, queries/s, device busy share, the
-   ``train.optimizer`` span, peak memory);
+   batch within 1e-5 relative, their avg_loss within 1e-3 (the ConvE
+   phase profiles the KvsAll path);
 12. 1vsAll phase: one epoch with kl, Adagrad lr 0.2, batch 1024 and a
    validation (K2 138 times); its first batch on the card and the host
-   within 1e-5; a second epoch profiled;
+   within 1e-5;
 13. triple phase: the negative sampler at its defaults (not shared, 3 +
    3 negatives, so ``auto`` scoring resolves to ``triple``) with
    filtering of o, bce, Adagrad lr 0.2, batch 1024,
    ``tpu.sparse_updates: always`` and weighted regularization, one
    epoch (K3 once a step for both tables, 266 times; K1 never), against
    the same epoch dense on the card: first batch within 1e-5, epoch
-   within 1e-3; a second row-sparse epoch profiled.
+   within 1e-3 (phases 6, 9, 12 and 13 profile no epoch, to keep the
+   run's time: the ConvE phase profiles the main path, and PERF.md keeps
+   their last profiles);
+14. K2 at this slice's query widths (run after the K2 kernel phase):
+   D in {129, 201, 2,001} at B in {100, 256} over the 14,541-row table,
+   the candidates a leading-row view of the 8-row-padded table (804-byte
+   rows at D = 201: the 4-byte-copy path): counts as in phase 3, each
+   shape's time, device and host time, bound, plain version's and
+   ``torch.matmul``'s time;
+15. ConvE phase, the main path of this slice (run after the eval
+   phase): reciprocal ConvE by KvsAll at its published widths (dim 200
+   as 20 x 10, 32 3 x 3 filters, dropout 0.2/0.2/0.3, label smoothing
+   0.1, batch 128, Adam lr 0.003, ExponentialLR 0.995) on the
+   FB15k-237-size graph, 2 epochs with a validation after each (K2 138
+   times in each, K1 and K3 never), ``resume`` to epoch 3; the first 100
+   batches of epoch 1 card vs host at dropout 0 (first batch within
+   1e-5, their avg_loss within 1e-3); dropout on the card by its
+   statistics; one epoch profiled (device busy share, peak memory, top
+   kernels);
+16. scorer phase: DistMult, CP, SimplE, RESCAL, RelationalTucker3,
+   TransE and RotatE (L1 and L2), TransH and the reciprocal Transformer
+   at HittER's widths (``SCORERS``), each trained 20 steps on the card
+   and from the same initial checkpoint on the host (first batch within
+   1e-5, every batch within 1e-3), then its card-trained checkpoint
+   evaluated on the first 2,000 test triples on the card and on the host
+   (metrics within 1e-4, rank and tie counts equal but for pairs at the
+   tie boundary within the float32 rounding of their scores, found in
+   float64); each run asserts its route by the launches: K2
+   40 in a fused evaluation and 0 in a generic one, K1 40 for the native
+   dot forms' shared ``kl`` training, K3 20 for TransE-L1 row-sparse.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
-every run that drives a path, ``launches_by_phase``) and, last,
+every run that drives a path, ``launches_by_phase``; K2's ``launches``
+are the ConvE main path's, its ``widths`` phase 14's shapes) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero when no CUDA device is
-present or the package is missing.
+present, the package is missing, or a module of JAX or of ``kge_tpu``
+was loaded.
 """
 
 from __future__ import annotations
@@ -194,6 +224,74 @@ K3_LR, K3_EPS = 0.2, 1e-10
 TRIPLE_ENTITY_ROWS = 2 * TRAIN_BATCH + 2 * 3 * TRAIN_BATCH
 FB_ENTITY_ROWS = -(-FB15K237["entities"] // 8) * 8
 FB_RELATION_ROWS = -(-FB15K237["relations"] // 8) * 8
+# K2's query widths on this slice's paths: TransE with L2 at dim 128
+# ([2q, -1]), reciprocal ConvE ([1 || features], dim 200 + 1) and a wide
+# query past K2's shared-memory depth slices
+SLICE_WIDTHS = (129, 201, 2001)
+# ConvE's published FB15k-237 settings (Dettmers et al. 2018)
+CONVE_DIM, CONVE_LR = 200, 0.003
+_BASE = "--reciprocal_relations_model.base_model."
+CONVE_NO_DROPOUT = [
+    _BASE + "feature_map_dropout", "0.0", _BASE + "projection_dropout", "0.0",
+    _BASE + "entity_embedder.dropout", "0.0",
+    _BASE + "relation_embedder.dropout", "0.0"]
+# every other scorer: steps trained card vs host, test triples evaluated
+SCORER_STEPS, SCORER_TEST = 20, 2000
+# Adagrad with an initial accumulator: its update is smooth in the
+# gradient, so the card and the host stay on one trajectory (from a zero
+# accumulator, Adagrad's and Adam's first update of an element is about
+# lr * sign(g), which sends a rounding-noise gradient either way: PERF.md
+# section 2; RelationalTucker3's projection then drifts 2% in 20 steps)
+_ADAGRAD = {"default": {"type": "Adagrad", "args": {
+    "lr": 0.1, "initial_accumulator_value": 0.1}}}
+# shared kl, the training main path's sampler: K1 on a native dot form
+_SHARED_KL = dict(
+    train={"type": "negative_sampling", "loss": "kl", "optimizer": _ADAGRAD},
+    sections={"negative_sampling": {
+        "num_samples": {"s": NEGATIVES, "o": NEGATIVES}, "shared": True,
+        "implementation": "batch"},
+        "tpu": {"fused_negsamp_loss": "always"}},
+    k1=True, k3=False, route="fused")
+# the toy-transe example's margin ranking over 8 + 8 negatives (auto
+# scoring resolves to triple)
+_MARGIN = dict(
+    train={"type": "negative_sampling", "loss": "margin_ranking",
+           "loss_arg": 4.0, "optimizer": _ADAGRAD},
+    sections={"negative_sampling": {"num_samples": {"s": 8, "o": 8}}},
+    k1=False, k3=False)
+# the toy-rotate example's self-adversarial bce over shared negatives
+_SELF_ADVERSARIAL = dict(
+    train={"type": "negative_sampling", "loss": "bce_self_adversarial",
+           "optimizer": _ADAGRAD},
+    sections={"negative_sampling": {"num_samples": {"s": 64, "o": 64},
+                                    "shared": True}},
+    k1=False, k3=False)
+SCORERS = {
+    "distmult": dict(model="distmult", **_SHARED_KL),
+    "cp": dict(model="cp", **_SHARED_KL),
+    "simple": dict(model="simple", **_SHARED_KL),
+    "rescal": dict(model="rescal", **_SHARED_KL),
+    "relational_tucker3": dict(model="relational_tucker3", **_SHARED_KL),
+    # row-sparse through K3
+    "transe-l1": dict(model="transe", route="generic", **{
+        **_MARGIN, "k3": True, "sections": {
+            **_MARGIN["sections"], "tpu": {"sparse_updates": "always"}}}),
+    "transe-l2": dict(model="transe", options={"l_norm": 2.0},
+                      route="fused", **_MARGIN),
+    "rotate-l1": dict(model="rotate", route="generic", **_SELF_ADVERSARIAL),
+    "rotate-l2": dict(model="rotate", options={"l_norm": 2.0},
+                      route="fused", **_SELF_ADVERSARIAL),
+    "transh": dict(model="transh", route="generic", **_MARGIN),
+    # HittER's widths (kge_tpu/models/transformer.yaml), dropout 0 for the
+    # card vs host comparison
+    "reciprocal-transformer": dict(
+        model="transformer", reciprocal=True, options={
+            "entity_embedder": {"dim": 320, "initialize": "xavier_uniform_"},
+            "relation_embedder": {"dim": 320,
+                                  "initialize": "xavier_uniform_"},
+            "encoder": {"dropout": 0.0}},
+        **_SHARED_KL),
+}
 
 
 def fail(message: str):
@@ -763,10 +861,14 @@ def device_us_by_name(fn, reps: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    # the profiler at times loses a window's records (a kernel counted 13
-    # times over 50 calls that each launch it once): a count that is not
-    # a whole number a call shows it, and the window is profiled again;
-    # a third lossy window fails the run rather than under-count
+    # the profiler at times loses records: a kernel counted 13 times over
+    # 50 calls that each launch it once, no record at all, or one or two
+    # of 50 (seen on a cuBLAS GEMM in three windows running). A kernel's
+    # launches a call are its count over the calls, rounded; a count
+    # further than a tenth of the calls from that whole number, or an
+    # empty window, profiles the window again, and a third such window
+    # fails the run rather than under-count. The time of a call is the
+    # mean time of a recorded launch times the launches a call.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -777,13 +879,18 @@ def device_us_by_name(fn, reps: int) -> dict:
             if e.device_type == DeviceType.CUDA:
                 us, n = out.get(e.name, (0.0, 0))
                 out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        lost = [name for name, (_, n) in out.items() if n % reps]
+        per_call = {name: round(n / reps) for name, (_, n) in out.items()}
+        lost = [name for name, (_, n) in out.items()
+                if not per_call[name]
+                or abs(n - per_call[name] * reps) > reps // 10]
+        if not out:
+            lost = ["every record"]
         if not lost:
-            return {name: (us / reps, n / reps)
+            return {name: (us / n * per_call[name], per_call[name])
                     for name, (us, n) in out.items()}
         print(f"profiler lost records of {lost} (attempt {attempt + 1}): "
-              f"{[out[name][1] for name in lost]} over {reps} calls",
-              flush=True)
+              f"{[out.get(name, (0, 0))[1] for name in lost]} over {reps} "
+              "calls", flush=True)
     fail(f"torch.profiler lost device records in 3 windows of {reps} calls")
 
 
@@ -1258,13 +1365,6 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
     # among 1.9M shift the epoch average slightly
     if compared["avg_loss_relative_difference"] > 1e-3:
         fail(f"epoch avg_loss, card vs host: {compared}")
-
-    # one more epoch under the profiler, without validation
-    folder = os.path.join(scratch, "profiled")
-    copy_run(run, folder, "checkpoint_00003.pt")
-    profile_run("train", "train.", lambda: cli.main([
-        "resume", folder, "--train.max_epochs", "4", "--valid.every", "0"]),
-        epoch_only=True)
     return dict(k1_launches=k1, config_file=config_file, counts=launched)
 
 
@@ -1470,7 +1570,7 @@ def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     lr 0.001, batch 128, the sp_ and _po query types, the default
     tpu.steps_per_dispatch, so the batch order is regrouped) on ComplEx
     dim 128 in place of CompGCN, 2 epochs with a validation after each,
-    ``resume`` to epoch 3, card vs host, one epoch profiled."""
+    ``resume`` to epoch 3, card vs host."""
     from kge_tpu_torch import cli
 
     config_file = os.path.join(scratch, "complex-kvsall.yaml")
@@ -1519,8 +1619,7 @@ def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     if compared["avg_loss_relative_difference"] > 1e-3:
         fail(f"KvsAll first {HOST_BATCHES} batches, card vs host: "
              f"{compared}")
-
-    profiled_epoch("kvsall", run, scratch, 4)
+    # no profiled epoch here: the ConvE phase profiles the KvsAll path
     return dict(start=start_counts, resume=resume_counts,
                 queries_per_s=[e["size"] / e["epoch_time"] for e in epochs])
 
@@ -1546,7 +1645,6 @@ def onevsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     compared = card_vs_host("1vsall", run, scratch, batches=1)
     if compared["first_batch_relative_difference"] > 1e-5:
         fail(f"1vsAll first batch, card vs host: {compared}")
-    profiled_epoch("1vsall", run, scratch, 2)
     return dict(start=launched)
 
 
@@ -1624,7 +1722,6 @@ def triple_phase(kernels, seed, scratch, dataset_folder) -> dict:
         fail(f"row-sparse and dense triple epochs disagree: first batch "
              f"{first_rel}, epoch {epoch_rel}, largest of a batch "
              f"{batch_rel}")
-    profiled_epoch("triple", run, scratch, 2)
     return dict(start=sparse["launches"])
 
 
@@ -1746,7 +1843,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
     as it is (tpu.sparse_updates auto) on a synthetic graph with
     Wikidata5M's sizes for one epoch, then ``valid``; K3 must update both
     tables every step. From the same checkpoint_00000.pt, one epoch each
-    row-sparse on the card under the profiler, dense on the card, and
+    row-sparse on the card, dense on the card, and
     row-sparse on the host (plain K1 and K3), compared. Each run folder
     goes as soon as it has been read: two checkpoints of 4.9 GB at most
     are on disk at once."""
@@ -1792,18 +1889,6 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         torch.cuda.synchronize()
         valid_seconds = time.perf_counter() - t0
         valid_counts = counts(kernels)
-        # K2's share of the validation: the same call under the profiler
-        profiled, valid_device = profile_run(
-            "valid wikidata5m", "entity_ranking.",
-            lambda: cli.main(["valid", run]))
-        k2_ms = sum(ms for name, (ms, _) in valid_device.items()
-                    if "rank_count" in name)
-        print("valid wikidata5m K2: " + json.dumps(dict(
-            k2_device_ms=k2_ms,
-            share_of_valid_epoch=k2_ms / (valid["epoch_time"] * 1e3),
-            share_of_profiled_valid_epoch=k2_ms / (profiled["epoch_time"]
-                                                   * 1e3),
-            valid_epoch_seconds=valid["epoch_time"])), flush=True)
 
         steps = epoch["batches"]
         setup = start_seconds - epoch["epoch_time"] - sum(start_saves)
@@ -1835,8 +1920,8 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         if not 0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0:
             fail("the Wikidata5M-size validation MRR is out of range")
 
-        # the same epoch from checkpoint_00000.pt: sparse on the card
-        # (profiled), dense on the card, sparse on the host
+        # the same epoch from checkpoint_00000.pt: sparse on the card,
+        # dense on the card, sparse on the host
         variants = {
             "sparse-card": [],
             "dense-card": ["--tpu.sparse_updates", "never"],
@@ -1863,13 +1948,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
             base = fresh_device_memory()
             del saves[:]
             t0 = time.perf_counter()
-            device = None
-            if name == "sparse-card":
-                entry, device = profile_run(
-                    "train wikidata5m sparse", "train.",
-                    lambda: cli.main(argv), epoch_only=True)
-            else:
-                entry = cli.main(argv)
+            entry = cli.main(argv)
             torch.cuda.synchronize()
             with open(os.path.join(folder, "kge.log")) as f:
                 log = f.read()
@@ -1884,14 +1963,6 @@ def w5m_phase(kernels, seed, scratch) -> dict:
                 device_memory_before_bytes=base,
                 sparse="Using row-sparse embedding updates." in log,
                 launches=counts(kernels))
-            if device is not None:
-                k3_ms = sum(ms for kernel, (ms, _) in device.items()
-                            if "adagrad_rows" in kernel)
-                device_ms = sum(ms for ms, _ in device.values())
-                runs[name].update(
-                    profiled=True, device_busy_ms=device_ms,
-                    k3_device_ms=k3_ms,
-                    k3_share_of_device_time=k3_ms / max(device_ms, 1e-9))
             os.replace(os.path.join(folder, "checkpoint_00000.pt"), init)
             shutil.rmtree(folder)
             print(f"train wikidata5m {name}: " + json.dumps(runs[name]),
@@ -1903,7 +1974,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
 
     card, dense, host = (runs[k] for k in
                          ("sparse-card", "dense-card", "sparse-host"))
-    expect_counts("the profiled sparse epoch", card["launches"],
+    expect_counts("the sparse epoch", card["launches"],
                   dict(adagrad_row_update=W5M_STEPS))
     expect_counts("the dense epoch", dense["launches"],
                   dict(adagrad_row_update=0, shared_ce_loss=2 * W5M_STEPS))
@@ -1934,10 +2005,464 @@ def w5m_phase(kernels, seed, scratch) -> dict:
                 counts=start_counts, valid_counts=valid_counts)
 
 
+# ----------------------------------------------------------------- K2 widths
+
+
+def rank_widths_phase(rc, seed, device) -> list:
+    """K2 at this slice's query widths (SLICE_WIDTHS) against its plain
+    version, at the eval batch and the validation's (B = 100, 256) over
+    the FB15k-237-size entity table, the candidates a leading-row view of
+    a table padded to 8 rows as the lookup embedder keeps it (rows of 4*D
+    bytes: not 16-byte aligned for odd D, K2's 4-byte-copy path); each
+    shape's time, device and host time, bound, plain version's and
+    ``torch.matmul(q, cand.T)``'s time."""
+    C = FB15K237["entities"]
+    out = []
+    for D in SLICE_WIDTHS:
+        for B in (EVAL_BATCH, VALID_BATCH):
+            q, cand, true, valid = make_rank_inputs(B, C, D, seed + D + B,
+                                                    device)
+            table = torch.zeros(FB_ENTITY_ROWS, D, device=device)
+            table[:C] = cand
+            cand = table[:C]
+            label = f"B={B} D={D}"
+            check = check_rank_counts(rc, label, q, cand, true, valid)
+            call = lambda: rc.rank_counts(q, cand, true, valid, ATOL, RTOL)
+            library = lambda: torch.matmul(q, cand.T)
+            ms = cuda_ms(call, reps=50)
+            plain_ms = cuda_ms(lambda: rc.rank_counts_reference(
+                q, cand, true, valid, ATOL, RTOL), reps=10)
+            library_ms = cuda_ms(library, reps=50)
+            prof = call_profile(f"rank_counts {label}", call, library)
+            bound_ms, bound_by, flops, moved = rank_bound(B, C, D)
+            entry = dict(B=B, C=C, D=D, max_abs_err=check["max_abs_err"],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         kernel_us=prof["kernel_us"],
+                         host_us=prof["host_us"],
+                         library_kernel_us=prof["library_kernel_us"])
+            print(f"rank_counts {label}: " + json.dumps(entry), flush=True)
+            out.append(entry)
+    return out
+
+
+# ----------------------------------------------------------------- ConvE
+
+
+def write_conve_config(path: str, dataset_folder: str, seed: int):
+    """The slice's main path: reciprocal ConvE by KvsAll with ConvE's
+    published FB15k-237 settings (Dettmers et al. 2018; the released
+    code's README): embedding dim 200 as a 20 x 10 image, 32 3 x 3
+    filters, input/feature-map/projection dropout 0.2/0.2/0.3, label
+    smoothing 0.1, batch 128, Adam lr 0.003, ExponentialLR gamma 0.995;
+    2 epochs with a validation after each."""
+    config = {
+        "job": {"type": "train"},
+        "dataset": {"name": dataset_folder},
+        "model": "reciprocal_relations_model",
+        "reciprocal_relations_model": {"base_model": {"type": "conve"}},
+        "conve": {
+            "entity_embedder": {"dim": CONVE_DIM,
+                                "initialize": "xavier_normal_"},
+            "relation_embedder": {"dim": CONVE_DIM,
+                                  "initialize": "xavier_normal_"},
+        },
+        "train": {
+            "type": "KvsAll", "loss": "bce", "max_epochs": 2,
+            "batch_size": KVSALL_BATCH,
+            "optimizer": {"default": {"type": "Adam",
+                                      "args": {"lr": CONVE_LR}}},
+            "lr_scheduler": "ExponentialLR",
+            "lr_scheduler_args": {"gamma": 0.995},
+        },
+        "KvsAll": {"label_smoothing": 0.1},
+        "valid": {"every": 1, "metric": "mean_reciprocal_rank_filtered"},
+        "eval": {"batch_size": VALID_BATCH},
+        "random_seed": {"default": seed},
+        "console": {"quiet": True},
+    }
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+
+
+@contextlib.contextmanager
+def launches_per_validation(rc, record: list):
+    """Appends to ``record`` the K2 launches of each validation of every
+    training job created inside (the count at each post-validation hook,
+    less the count at the one before; no K2 launch happens in a KvsAll
+    step)."""
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.train.train import TrainingJob
+
+    def hook(job):
+        if isinstance(job, TrainingJob):
+            seen = [rc.rank_counts.launches]
+
+            def after_valid(_):
+                record.append(rc.rank_counts.launches - seen[0])
+                seen[0] = rc.rank_counts.launches
+
+            job.post_valid_hooks.append(after_valid)
+
+    Job.job_created_hooks.append(hook)
+    try:
+        yield
+    finally:
+        Job.job_created_hooks.remove(hook)
+
+
+def dropout_statistics(device):
+    """Ctx.dropout on the card, by its statistics: the kept share of a
+    16.8M-element mask within 5 sigma of 1 - rate and the kept values
+    scaled by 1 / keep, at ConvE's rates."""
+    from kge_tpu_torch.models import Ctx
+
+    x = torch.full((4096, 4096), 2.0, device=device)
+    n = x.numel()
+    out = {}
+    for rate in (0.2, 0.3):
+        keep = 1.0 - rate
+        g = torch.Generator(device=device).manual_seed(int(rate * 10))
+        y = Ctx(train=True, generator=g).dropout(x, rate)
+        kept = y != 0
+        share = kept.double().mean().item()
+        sigma = math.sqrt(keep * (1 - keep) / n)
+        scale_err = (y[kept] - 2.0 / keep).abs().max().item()
+        out[rate] = dict(kept_share=share, sigmas=(share - keep) / sigma,
+                         kept_value_max_abs_err=scale_err)
+        if abs(share - keep) > 5 * sigma or scale_err > 1e-6:
+            fail(f"dropout at rate {rate} on the card: {out[rate]}")
+    print("dropout on the card: " + json.dumps(out), flush=True)
+
+
+def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The slice's main path: reciprocal ConvE by KvsAll at its published
+    widths (``write_conve_config``) on the FB15k-237-size graph, 2 epochs
+    with a validation after each (each through K2, 138 launches), resume
+    to epoch 3; the first 100 batches of epoch 1 again on the card and on
+    the host at dropout 0 (torch's CPU and CUDA generators draw other
+    masks); dropout by its statistics; one epoch profiled."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.ops import rank_count as rc
+
+    config_file = os.path.join(scratch, "conve.yaml")
+    write_conve_config(config_file, dataset_folder, seed)
+    run = os.path.join(scratch, "conve-run")
+    per_validation = []
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with launches_per_validation(rc, per_validation):
+        cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    start_counts = counts(kernels)
+    epochs = check_start("conve", run, start_counts, dict(
+        rank_counts=2 * VALID_LAUNCHES, shared_ce_loss=0,
+        adagrad_row_update=0, sgd_row_update=0), 2)
+    print(f"train conve start seconds_cli {seconds}; K2 launches per "
+          f"validation {per_validation}", flush=True)
+    if per_validation != [VALID_LAUNCHES, VALID_LAUNCHES]:
+        fail(f"ConvE's validations launched K2 {per_validation} times, "
+             f"expected {VALID_LAUNCHES} each")
+
+    reset_counts(kernels)
+    resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resume_counts = counts(kernels)
+    print("train conve resume on the card: " + json.dumps(dict(
+        epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
+        epoch_seconds=resumed["epoch_time"], launches=resume_counts)),
+        flush=True)
+    if resumed["epoch"] != 3 or not math.isfinite(resumed["avg_loss"]):
+        fail(f"the ConvE resume did not reach a finite epoch 3: {resumed}")
+    expect_counts("the resumed ConvE epoch", resume_counts, dict(
+        rank_counts=VALID_LAUNCHES, shared_ce_loss=0, adagrad_row_update=0,
+        sgd_row_update=0))
+
+    dropout_statistics(torch.device("cuda:0"))
+    compared = card_vs_host("conve", run, scratch, flags=CONVE_NO_DROPOUT,
+                            batches=HOST_BATCHES)
+    if compared["first_batch_relative_difference"] > 1e-5:
+        fail(f"ConvE first batch, card vs host: {compared}")
+    # Adam's first update of an element is about lr * sign(g) (PERF.md
+    # section 2)
+    if compared["avg_loss_relative_difference"] > 1e-3:
+        fail(f"ConvE first {HOST_BATCHES} batches, card vs host: "
+             f"{compared}")
+    profiled_epoch("conve", run, scratch, 4)
+    return dict(start=start_counts, resume=resume_counts,
+                per_validation=per_validation,
+                queries_per_s=[e["size"] / e["epoch_time"] for e in epochs])
+
+
+# ----------------------------------------------------------------- scorers
+
+
+def write_test_subset(dataset_folder: str, target: str, n: int):
+    """A dataset folder sharing ``dataset_folder``'s files, with the first
+    ``n`` test triples as its test split."""
+    os.makedirs(target)
+    for name in ("train.del", "valid.del", "entity_ids.del",
+                 "relation_ids.del"):
+        os.symlink(os.path.join(dataset_folder, name),
+                   os.path.join(target, name))
+    with open(os.path.join(dataset_folder, "test.del")) as f:
+        lines = [next(f) for _ in range(n)]
+    with open(os.path.join(target, "test.del"), "w") as f:
+        f.writelines(lines)
+
+
+def write_scorer_config(path: str, dataset_folder: str, seed: int,
+                        spec: dict):
+    """One scorer of SCORERS trained by its strategy (no validation;
+    batch-level trace)."""
+    model = spec["model"]
+    config = {
+        "job": {"type": "train"},
+        "dataset": {"name": dataset_folder},
+        "train": {"max_epochs": 1, "batch_size": TRAIN_BATCH,
+                  "trace_level": "batch", **spec["train"]},
+        "valid": {"every": 0, "metric": "mean_reciprocal_rank_filtered"},
+        "eval": {"batch_size": EVAL_BATCH},
+        "entity_ranking": {"chunk_size": 4096},
+        "random_seed": {"default": seed},
+        "console": {"quiet": True},
+        **spec.get("sections", {}),
+    }
+    if spec.get("reciprocal"):
+        config["model"] = "reciprocal_relations_model"
+        config["reciprocal_relations_model"] = {"base_model": {"type": model}}
+    else:
+        config["model"] = model
+        config["lookup_embedder"] = {"dim": DIM,
+                                     "initialize": "xavier_uniform_"}
+    if spec.get("options"):
+        config[model] = spec["options"]
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+
+
+@contextlib.contextmanager
+def recorded_counts(record: list):
+    """Appends to ``record`` the (triples, counts) of every batch that the
+    entity-ranking jobs created inside evaluate: counts [rankings, 4, B]
+    of (o rank, o ties, s rank, s ties) a ranking (raw, filtered, ...)."""
+    from kge_tpu_torch.evaluation.entity_ranking import EntityRankingJob
+    from kge_tpu_torch.train.job import Job
+
+    def hook(job):
+        if isinstance(job, EntityRankingJob):
+            accumulate = job._accumulate_batch
+
+            def recording(hists, rankings, totals, batch, *rest):
+                record.append((batch.copy(), totals.copy()))
+                return accumulate(hists, rankings, totals, batch, *rest)
+
+            job._accumulate_batch = recording
+
+    Job.job_created_hooks.append(hook)
+    try:
+        yield
+    finally:
+        Job.job_created_hooks.remove(hook)
+
+
+def boundary_allowance(model64, route: str, entry: dict, side: str) -> int:
+    """Candidates of one query whose float64 score lies at the tie
+    boundary |s - t| = atol + rtol*|t| within the rounding of two float32
+    computations of s and t, in the score space the evaluation ranks in
+    (the dot form on the fused route, the native score on the generic
+    one): such a pair may fall on either side on the card and on the
+    host, and moves a final rank by at most one. The rounding bound of a
+    float32 sum of D terms is D * 2^-24 times the sum of their absolute
+    values: |q| . |c| for a dot form, |s| for the distances of the
+    generic route (sums of non-negative terms)."""
+    from kge_tpu_torch.models import Ctx
+
+    t = lambda i: torch.tensor([int(entry[i])])
+    ctx = Ctx(state=model64.model_state)
+    with torch.no_grad():
+        if route == "fused":
+            q_sp, q_po = model64.dot_queries(t("s"), t("p"), t("o"), ctx)
+            cand_sp, cand_po = model64.dot_candidates_all(ctx)
+            q, cand = (q_sp, cand_sp) if side == "o" else (q_po, cand_po)
+            scores = (q @ cand.T)[0]
+            magnitude = (q.abs() @ cand.abs().T)[0]
+            depth = q.shape[1]
+        else:
+            scores = (model64.score_sp(t("s"), t("p"), ctx=ctx)[0]
+                      if side == "o"
+                      else model64.score_po(t("p"), t("o"), ctx=ctx)[0])
+            magnitude = scores.abs()
+            depth = model64.get_s_embedder().dim
+    i = int(entry[side])
+    true = scores[i]
+    rounding = depth * 2.0 ** -24 * (magnitude + magnitude[i])
+    tol = ATOL + RTOL * true.abs()
+    near = (((scores - true).abs() - tol).abs() <= rounding).sum()
+    return int(near)
+
+
+def compare_counts(name: str, run: str, route: str, card: list,
+                   host: list) -> dict:
+    """Card vs host rank and tie counts of every query and ranking:
+    equal, or apart by at most the query's pairs at the tie boundary
+    (``boundary_allowance``, in float64 on the host from the evaluated
+    checkpoint)."""
+    from kge_tpu_torch.models import KgeModel
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    if len(card) != len(host) or not card:
+        fail(f"{name}: {len(card)} card and {len(host)} host batches")
+    model64, queries, differing, allowed = None, 0, 0, 0
+    for (triples, a), (triples_host, b) in zip(card, host):
+        if not np.array_equal(triples, triples_host):
+            fail(f"{name}: the card and the host ranked other triples")
+        queries += 2 * len(triples)
+        diff = np.abs(a - b)                      # [rankings, 4, B]
+        for column in np.flatnonzero(diff.max(axis=(0, 1))):
+            if model64 is None:
+                checkpoint = load_checkpoint(
+                    os.path.join(run, "checkpoint_00001.pt"))
+                model64 = KgeModel.create_from(
+                    checkpoint, device=torch.device("cpu")).double()
+                model64.model_state = {
+                    k: {s: v.double() for s, v in st.items()}
+                    for k, st in model64.model_state.items()}
+            entry = dict(zip("spo", triples[column]))
+            for side, rows in (("o", slice(0, 2)), ("s", slice(2, 4))):
+                worst = int(diff[:, rows, column].max())
+                if not worst:
+                    continue
+                differing += 1
+                near = boundary_allowance(model64, route, entry, side)
+                allowed += near
+                if worst > near:
+                    query = tuple(map(int, triples[column]))
+                    fail(f"{name}: {side} side of {query}: "
+                         f"counts card {a[:, rows, column].tolist()} vs host "
+                         f"{b[:, rows, column].tolist()}, {near} pairs at "
+                         "the tie boundary")
+    return dict(queries=queries, rankings=len(card[0][1]),
+                differing_queries=differing, boundary_pairs_in_them=allowed)
+
+
+def scorer_run(name: str, spec: dict, kernels, seed, scratch,
+               dataset_folder) -> dict:
+    """One scorer: SCORER_STEPS steps of its strategy on the card and, from
+    the same initial checkpoint, on the host (batch losses compared); then
+    the card-trained checkpoint evaluated on the test subset on the card
+    and on the host (metrics and ranks compared); the kernels each run
+    launched, against the route it must take."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, f"scorer-{name}.yaml")
+    write_scorer_config(config_file, dataset_folder, seed, spec)
+    run = os.path.join(scratch, f"scorer-{name}")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with first_batches(SCORER_STEPS):
+        cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    train_counts = counts(kernels)
+    k1 = 2 * SCORER_STEPS if spec["k1"] else 0
+    k3 = SCORER_STEPS if spec["k3"] else 0
+    expect_counts(f"{name}'s training", train_counts, dict(
+        rank_counts=0, shared_ce_loss=k1, adagrad_row_update=k3,
+        sgd_row_update=0))
+    card_losses = batch_losses(run)
+
+    host_folder = os.path.join(scratch, f"scorer-{name}-host")
+    copy_run(run, host_folder, "checkpoint_00000.pt")
+    t0 = time.perf_counter()
+    with first_batches(SCORER_STEPS):
+        cli.main(["resume", host_folder, "--train.max_epochs", "1",
+                  "--job.device", "cpu"])
+    host_train_seconds = time.perf_counter() - t0
+    host_losses = batch_losses(host_folder)
+    shutil.rmtree(host_folder)
+    if (len(card_losses) != SCORER_STEPS
+            or len(host_losses) != SCORER_STEPS
+            or not all(map(math.isfinite, card_losses))):
+        fail(f"{name}: losses card {card_losses} host {host_losses}")
+    first = relative(card_losses[0], host_losses[0])
+    worst = max(relative(a, b) for a, b in zip(card_losses, host_losses))
+    # the first step sees identical weights; later ones the sign trap of
+    # Adagrad's and Adam's first updates (PERF.md section 2)
+    if first > 1e-5 or worst > 1e-3:
+        fail(f"{name}: card vs host batch losses, first {first}, largest "
+             f"{worst}")
+
+    reset_counts(kernels)
+    card_counts, host_counts = [], []
+    t0 = time.perf_counter()
+    with recorded_counts(card_counts):
+        card = cli.main(["test", run])
+    torch.cuda.synchronize()
+    eval_seconds = time.perf_counter() - t0
+    eval_counts = counts(kernels)
+    t0 = time.perf_counter()
+    with recorded_counts(host_counts):
+        host = cli.main(["test", run, "--job.device", "cpu"])
+    host_eval_seconds = time.perf_counter() - t0
+    fused = spec["route"] == "fused"
+    expect_counts(f"{name}'s evaluation", eval_counts, dict(
+        rank_counts=2 * math.ceil(SCORER_TEST / EVAL_BATCH) if fused else 0,
+        shared_ce_loss=0, adagrad_row_update=0, sgd_row_update=0))
+    metrics = {k: v for k, v in card.items()
+               if k.startswith(("mean_", "hits_"))}
+    # relative to the value where it exceeds 1 (a mean rank moves by
+    # 1 / 4,000 for one rank at the tie boundary), as in the eval phase
+    worst_metric = max(abs(v - host[k]) / max(1.0, abs(host[k]))
+                       for k, v in metrics.items())
+    if not all(map(math.isfinite, metrics.values())) or worst_metric > 1e-4:
+        fail(f"{name}: eval metrics card {metrics} vs host {host}")
+    ranks = compare_counts(name, run, spec["route"], card_counts,
+                           host_counts)
+    shutil.rmtree(run)
+    out = dict(route=spec["route"], train_launches=train_counts,
+               eval_launches=eval_counts,
+               first_batch_relative_difference=first,
+               largest_batch_relative_difference=worst,
+               mrr_filtered=metrics["mean_reciprocal_rank_filtered"],
+               largest_metric_difference=worst_metric, ranks=ranks,
+               card_train_seconds=train_seconds,
+               host_train_seconds=host_train_seconds,
+               card_eval_seconds=eval_seconds,
+               host_eval_seconds=host_eval_seconds)
+    print(f"scorer {name} card vs host: " + json.dumps(out), flush=True)
+    return out
+
+
+def scorers_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """Every other scorer of kge_tpu (SCORERS): trained for SCORER_STEPS
+    steps and evaluated on the first SCORER_TEST test triples, card vs
+    host, each run asserting its route by the kernels it launched."""
+    subset = os.path.join(scratch, "fb15k237-test-subset")
+    write_test_subset(dataset_folder, subset, SCORER_TEST)
+    return {name: scorer_run(name, spec, kernels, seed, scratch, subset)
+            for name, spec in SCORERS.items()}
+
+
+#: the phases in the order they run
+PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
+          "conve", "scorers", "train", "sgd", "kvsall", "1vsall", "triple",
+          "wikidata5m")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated subset of the phases to run (default: all; "
+        "the kernels line is printed only when all ran)")
     args = parser.parse_args()
+    selected = args.phases.split(",")
+    unknown = set(selected) - set(PHASES)
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}; known: {PHASES}")
 
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -1976,28 +2501,67 @@ def main():
 
     kernels = (rc.rank_counts, nl.shared_ce_loss, ru.adagrad_row_update,
                ru.sgd_row_update)
-    k2 = kernel_phase(rc, args.seed, device)
-    k1 = k1_phase(nl, args.seed, device)
-    k3 = k3_phase(ru, args.seed, device)
-    losses_optimizers_phase(args.seed, device)
+    seconds = {}
+    results = {}
+
+    def run(phase, fn, *fn_args):
+        if phase not in selected:
+            return None
+        t0 = time.perf_counter()
+        results[phase] = fn(*fn_args)
+        seconds[phase] = time.perf_counter() - t0
+        print(f"phase {phase}: {seconds[phase]} s", flush=True)
+        return results[phase]
+
+    run("k2", kernel_phase, rc, args.seed, device)
+    run("k2_widths", rank_widths_phase, rc, args.seed, device)
+    run("k1", k1_phase, nl, args.seed, device)
+    run("k3", k3_phase, ru, args.seed, device)
+    run("losses_optimizers", losses_optimizers_phase, args.seed, device)
     os.makedirs(os.path.join(REPO, "local"), exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke-",
                                dir=os.path.join(REPO, "local"))
     try:
-        ev = eval_phase(rc, kernels, args.seed, device, scratch)
-        graph = ev["dataset_folder"]
-        tr = train_phase(kernels, args.seed, scratch, graph)
-        sgd = sgd_phase(kernels, scratch, tr["config_file"])
-        kv = kvsall_phase(kernels, args.seed, scratch, graph)
-        one = onevsall_phase(kernels, args.seed, scratch, graph)
-        tri = triple_phase(kernels, args.seed, scratch, graph)
-        w5m = w5m_phase(kernels, args.seed, scratch)
+        ev = run("eval", eval_phase, rc, kernels, args.seed, device, scratch)
+        if ev is None:
+            graph = os.path.join(scratch, "fb15k237-synthetic")
+            write_dataset(graph, args.seed)
+        else:
+            graph = ev["dataset_folder"]
+        run("conve", conve_phase, kernels, args.seed, scratch, graph)
+        run("scorers", scorers_phase, kernels, args.seed, scratch, graph)
+        tr = run("train", train_phase, kernels, args.seed, scratch, graph)
+        if tr is not None:
+            run("sgd", sgd_phase, kernels, scratch, tr["config_file"])
+        run("kvsall", kvsall_phase, kernels, args.seed, scratch, graph)
+        run("1vsall", onevsall_phase, kernels, args.seed, scratch, graph)
+        run("triple", triple_phase, kernels, args.seed, scratch, graph)
+        run("wikidata5m", w5m_phase, kernels, args.seed, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    print("phase seconds: " + json.dumps(seconds), flush=True)
+
+    # the port runs without JAX: neither it nor the JAX package was loaded
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                           "kge_tpu"))
+    if loaded:
+        fail(f"modules of JAX or the JAX package were loaded: {loaded}")
+    if set(selected) != set(PHASES):
+        print(json.dumps({"ok": True, "phases": selected}), flush=True)
+        return
+    k2, k1, k3 = results["k2"], results["k1"], results["k3"]
+    ev, tr, sgd = results["eval"], results["train"], results["sgd"]
+    kv, one, tri = results["kvsall"], results["1vsall"], results["triple"]
+    w5m, conve = results["wikidata5m"], results["conve"]
 
     # each kernel's launches in every run that drives a path, the counts
     # set to 0 before the run and read after it
     by_phase = {
+        "conve": conve["start"], "conve_resume": conve["resume"],
+        **{f"scorer_{name}_{part}": out[f"{part}_launches"]
+           for name, out in results["scorers"].items()
+           for part in ("train", "eval")},
         "eval": ev["counts"], "train_negsamp": tr["counts"],
         "sgd_sparse": sgd["counts"], "kvsall": kv["start"],
         "kvsall_resume": kv["resume"], "1vsall": one["start"],
@@ -2011,11 +2575,14 @@ def main():
         name="rank_counts", route="cuda",
         source="kge_tpu_torch/csrc/rank_count.cu",
         replaces="kge_tpu/ops/pallas/rank_count.py:42",
-        launches=ev["launches"], max_abs_err=k2["max_abs_err"],
+        launches=conve["start"]["rank_counts"],
+        max_abs_err=max(k2["max_abs_err"], *(
+            w["max_abs_err"] for w in results["k2_widths"])),
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
         bound_by=k2["bound_by"], library_ms=k2["library_ms"],
         kernel_us=k2["kernel_us"], host_us=k2["host_us"],
         library_kernel_us=k2["library_kernel_us"],
+        widths=results["k2_widths"],
         launches_by_phase=phases("rank_counts"),
     ), dict(
         name="shared_ce_loss", route="cuda",

@@ -3,9 +3,10 @@
 A second package beside ``kge_tpu`` (the JAX reference), held against it
 on the same inputs. It imports nothing of ``kge_tpu``, ``jax`` or
 ``optax``, reads ``kge_tpu``'s configs and checkpoints, and writes
-checkpoints ``kge_tpu`` reads. So far it evaluates ComplEx checkpoints
-(``python -m kge_tpu_torch test <folder>``) through the hand-written CUDA
-rank-count kernel (``csrc/rank_count.cu``).
+checkpoints ``kge_tpu`` reads. It trains (``python -m kge_tpu_torch
+start``) and evaluates (``test``) every scorer of ``kge_tpu`` outside the
+R-GNN encoders, with hand-written CUDA kernels for the rank count, the
+fused shared-negative loss and the row-sparse updates (``csrc/``).
 """
 
 from kge_tpu_torch.config import Config, Configurable

@@ -133,6 +133,19 @@ class Dataset(Configurable):
         }
         return checkpoint
 
+    def shallow_copy(self) -> "Dataset":
+        """Copy sharing loaded data; used to fake a doubled relation
+        vocabulary for reciprocal models (reference:
+        kge/dataset.py:333-345)."""
+        copy = Dataset(self.config, self.folder)
+        copy._num_entities = self.num_entities()
+        copy._num_relations = self.num_relations()
+        copy._triples = self._triples
+        copy._meta = self._meta
+        copy._indexes = self._indexes
+        copy.index_functions = self.index_functions
+        return copy
+
     # ------------------------------------------------------------------ caching
 
     def _cache_path(self, name: str) -> str:

@@ -3,10 +3,20 @@
 kge/job/eval_entity_ranking.py).
 
 Ranking by *comparison counting* — rank = #(scores > true), ties =
-#(scores ≈ true) — needs no sort and no top-k. The fused path scores
-every batch against the whole entity table with one launch of the
-rank-count kernel per side (``ops/rank_count.py``) and filters by
-subtracting the counts of the label coordinates.
+#(scores ≈ true) — needs no sort and no top-k. Two routes, chosen as
+``kge_tpu`` chooses them (``entity_ranking.implementation``; ``auto``
+takes the fused route where the model has a dot form):
+
+- fused: every batch is scored against the whole entity table with one
+  launch of the rank-count kernel per side (``ops/rank_count.py``), and
+  filtering subtracts the counts of the label coordinates. Where the dot
+  form is a monotone transform of the score (TransE and RotatE with
+  ``l_norm`` 2), the true scores come from the same dot path, so one
+  tie tolerance applies in one score space;
+- generic: ``score_sp_po`` over chunks of ``entity_ranking.chunk_size``
+  entities, filtered answers masked to -inf, counts by
+  ``greater_tie_counts`` added over the chunks (models without a dot
+  form: TransE and RotatE with L1, TransH, ...).
 
 Reference semantics preserved:
 - filtering removes true answers from the competition
@@ -18,12 +28,12 @@ Reference semantics preserved:
 - true scores are computed through the same sp_/_po scoring path as the
   reference (floating-point-consistency trick,
   eval_entity_ranking.py:186-203), with an spo-vs-sp_ consistency check
+  where the model scores spo both ways (``kge_tpu`` skips it otherwise)
 
-Scoring is float32 throughout: TF32 is switched off for the run, since
-it would move scores across the tie tolerance and change the counts.
-Not ported yet: ``entity_ranking.implementation: generic`` (chunked
-score_sp_po with -inf masking, for models without a dot form) and the
-vocabulary-sharded multi-device form.
+Scoring is float32 throughout: TF32 is switched off for the run (cuBLAS
+and cuDNN), since it would move scores across the tie tolerance and
+change the counts. Not ported yet: the vocabulary-sharded multi-device
+form.
 """
 
 from __future__ import annotations
@@ -37,7 +47,6 @@ import torch
 from torch.profiler import record_function
 
 from kge_tpu_torch.evaluation.eval import EvaluationJob
-from kge_tpu_torch.models import Ctx
 from kge_tpu_torch.ops.rank_count import greater_tie_counts, rank_counts
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.utils.misc import pow2_bucket as _bucket
@@ -83,22 +92,12 @@ class EntityRankingJob(EvaluationJob):
             self.hist_hooks.append(hist_per_relation_type)
         if self.config.get("entity_ranking.metrics_per.argument_frequency"):
             self.hist_hooks.append(hist_per_frequency_percentile)
-        implementation = self.config.check(
+        self.chunk_size: int = self.config.get("entity_ranking.chunk_size")
+        self.implementation = self.config.check(
             "entity_ranking.implementation", ["auto", "generic", "fused"]
         )
-        if implementation == "generic" or (
-            implementation == "auto" and not self.model.supports_dot_ranking()
-        ):
-            raise NotImplementedError(
-                "entity_ranking.implementation generic (models without a dot "
-                "form) is not yet ported to kge_tpu_torch"
-            )
-        if self.model.dot_score_space() != "native":
-            # a monotone dot form needs the true scores from the dot path
-            # (kge_tpu/evaluation/entity_ranking.py:402-416)
-            raise NotImplementedError(
-                "ranking in a monotone dot score space is not yet ported"
-            )
+        #: whether the model scores spo both ways (None: not yet tried)
+        self._spo_supported = None
         if self.__class__ == EntityRankingJob:
             for f in Job.job_created_hooks:
                 f(self)
@@ -167,20 +166,39 @@ class EntityRankingJob(EvaluationJob):
 
     # ------------------------------------------------------------------ scores
 
+    def _use_fused(self) -> bool:
+        """The route, as ``kge_tpu``'s ``_use_fused`` decides it."""
+        if self.implementation == "fused":
+            return True
+        return (self.implementation == "auto"
+                and self.model.supports_dot_ranking())
+
     def _true_scores(self, s, p, o):
         """True scores through the sp_/_po matrix path (the diagonal of
         a [B, B] score block), as ``kge_tpu`` computes them."""
-        ctx = Ctx()
+        ctx = self.model.default_ctx()
         o_true = torch.diagonal(self.model.score_sp(s, p, o_subset=o, ctx=ctx))
         s_true = torch.diagonal(self.model.score_po(p, o, s_subset=s, ctx=ctx))
         return o_true, s_true
 
     def _spo_scores(self, s, p, o):
         """Device half of the spo-vs-sp_ consistency check: the
-        triple-wise scores, compared after the fetch."""
-        ctx = Ctx()
-        return (self.model.score_spo(s, p, o, direction="o", ctx=ctx),
-                self.model.score_spo(s, p, o, direction="s", ctx=ctx))
+        triple-wise scores, compared after the fetch; None for a model
+        that cannot score spo both ways (the check is skipped, as
+        ``kge_tpu``'s ``_spo_consistency_scores`` skips it)."""
+        if self._spo_supported is False:
+            return None
+        ctx = self.model.default_ctx()
+        try:
+            scores = (self.model.score_spo(s, p, o, direction="o", ctx=ctx),
+                      self.model.score_spo(s, p, o, direction="s", ctx=ctx))
+        except (ValueError, NotImplementedError):
+            if self._spo_supported:  # it scored before: a real fault
+                raise
+            self._spo_supported = False
+            return None
+        self._spo_supported = True
+        return scores
 
     def _check_spo_consistency(self, o_spo, s_spo, o_true, s_true):
         """spo-vs-sp_ floating point consistency check (reference:
@@ -215,8 +233,18 @@ class EntityRankingJob(EvaluationJob):
         model = self.model
         atol, rtol = self.tie_atol, self.tie_rtol
         num_entities = self.dataset.num_entities()
-        ctx = Ctx()
+        ctx = model.default_ctx()
         q_sp, q_po = model.dot_queries(s, p, o, ctx=ctx)
+        if model.dot_score_space() == "monotone":
+            # the dot form is a monotone transform of the score (the L2
+            # distance expansion): the true scores come from the SAME dot
+            # path, so candidate and true scores share one score space
+            # and the tie tolerances apply consistently
+            # (kge_tpu/evaluation/entity_ranking.py:402-416)
+            cand_o_sp, _ = model.dot_candidates(o, ctx=ctx, sides=("sp",))
+            _, cand_s_po = model.dot_candidates(s, ctx=ctx, sides=("po",))
+            o_true = torch.einsum("bd,bd->b", q_sp, cand_o_sp)
+            s_true = torch.einsum("bd,bd->b", q_po, cand_s_po)
         # NaN -> -inf before counting (the rank kernel's contract) so a
         # NaN-scoring model ranks last instead of first
         o_true = torch.where(torch.isnan(o_true), -torch.inf, o_true)
@@ -224,6 +252,11 @@ class EntityRankingJob(EvaluationJob):
 
         # the unpadded tables, read in place by the kernel
         cand_sp, cand_po = model.dot_candidates_all(ctx=ctx)
+        # the kernel reads row-major operands: a no-op for the raw tables
+        # (read in place), a copy for CP's column halves and the
+        # Transformer's strided queries
+        q_sp, q_po = q_sp.contiguous(), q_po.contiguous()
+        cand_sp, cand_po = cand_sp.contiguous(), cand_po.contiguous()
         r0, t0 = rank_counts(q_sp, cand_sp, o_true, cand_valid, atol, rtol)
         r1, t1 = rank_counts(q_po, cand_po, s_true, cand_valid, atol, rtol)
         raw = torch.stack([r0, t0, r1, t1])
@@ -255,6 +288,62 @@ class EntityRankingJob(EvaluationJob):
                 torch.clamp(raw[3] - po_sub_t[k], min=1),
             ]))
         return torch.stack(totals)
+
+    # ------------------------------------------------------------ generic path
+
+    def _generic_counts(self, s, p, o, coords_sp, coords_po, o_true, s_true,
+                        num_rankings: int) -> torch.Tensor:
+        """[num_rankings, 4, B] int32, as ``_fused_counts``, from
+        ``score_sp_po`` over chunks of ``entity_ranking.chunk_size``
+        entities (``kge_tpu``'s ``_build_chunk_fn``): columns past the
+        last entity and, per filtered ranking, the label coordinates
+        masked to -inf (cumulatively: the test split adds to the
+        filter splits), then ``greater_tie_counts`` added over the
+        chunks."""
+        model = self.model
+        atol, rtol = self.tie_atol, self.tie_rtol
+        num_entities = self.dataset.num_entities()
+        chunk_size = self.chunk_size if self.chunk_size > 0 else num_entities
+        device = s.device
+        every = torch.ones((), dtype=torch.bool, device=device)
+        ctx = model.default_ctx()
+
+        def counts(sp, po):
+            r, t = greater_tie_counts(sp, o_true[:, None], every, dim=1,
+                                      atol=atol, rtol=rtol)
+            r2, t2 = greater_tie_counts(po, s_true[:, None], every, dim=1,
+                                        atol=atol, rtol=rtol)
+            return torch.stack([r, t, r2, t2])
+
+        def mask(scores, coords, chunk_start):
+            # labels outside this chunk go to an extra column, which is
+            # dropped (kge_tpu's scatter with mode="drop")
+            local = coords - chunk_start
+            local = torch.where((coords >= chunk_start) & (local < chunk_size),
+                                local, chunk_size)
+            padded = torch.cat([scores, scores[:, :1]], dim=1)
+            padded.scatter_(1, local, -torch.inf)
+            return padded[:, :chunk_size]
+
+        totals = 0
+        for chunk_start in range(0, num_entities, chunk_size):
+            ids = torch.arange(chunk_start, chunk_start + chunk_size,
+                               device=device)
+            col_valid = ids < num_entities
+            ids = torch.clamp(ids, max=num_entities - 1)
+            scores = model.score_sp_po(s, p, o, entity_subset=ids, ctx=ctx)
+            scores = scores.to(torch.float32)
+            sp = torch.where(col_valid[None, :], scores[:, :chunk_size],
+                             -torch.inf)
+            po = torch.where(col_valid[None, :], scores[:, chunk_size:],
+                             -torch.inf)
+            out = [counts(sp, po)]
+            for k in range(num_rankings - 1):
+                sp = mask(sp, coords_sp[k], chunk_start)
+                po = mask(po, coords_po[k], chunk_start)
+                out.append(counts(sp, po))
+            totals = totals + torch.stack(out)
+        return totals
 
     def _final_ranks(self, rank: np.ndarray, ties: np.ndarray) -> np.ndarray:
         if self.tie_handling == "rounded_mean_rank":
@@ -336,6 +425,7 @@ class EntityRankingJob(EvaluationJob):
         # every candidate counts: one mask for the whole run
         cand_valid = torch.ones(self.dataset.num_entities(),
                                 dtype=torch.float32, device=columns.device)
+        use_fused = self._use_fused()
         example_traces = []
         pending = []
         # Spans (torch.profiler.record_function; no cost without a
@@ -349,7 +439,7 @@ class EntityRankingJob(EvaluationJob):
                 s, p, o = columns[:, start : start + B]
                 with record_function("entity_ranking.true_scores"):
                     o_true, s_true = self._true_scores(s, p, o)
-                    o_spo, s_spo = self._spo_scores(s, p, o)
+                    spo_pair = self._spo_scores(s, p, o)
 
                 with record_function("entity_ranking.collect_coords"):
                     # label coordinates per filtered ranking (deduped per
@@ -365,14 +455,23 @@ class EntityRankingJob(EvaluationJob):
                     Lp = _bucket(max(cs[1].shape[1] for cs in coord_sets))
                     coords_sp = np.stack([_pad_to(cs[0], L) for cs in coord_sets])
                     coords_po = np.stack([_pad_to(cs[1], Lp) for cs in coord_sets])
-                with record_function("entity_ranking.fused_counts"):
-                    totals = self._fused_counts(
-                        s, p, o, self._upload(coords_sp),
-                        self._upload(coords_po), o_true, s_true,
-                        len(rankings), cand_valid,
-                    )
+                if use_fused:
+                    with record_function("entity_ranking.fused_counts"):
+                        totals = self._fused_counts(
+                            s, p, o, self._upload(coords_sp),
+                            self._upload(coords_po), o_true, s_true,
+                            len(rankings), cand_valid,
+                        )
+                else:
+                    with record_function("entity_ranking.generic_counts"):
+                        totals = self._generic_counts(
+                            s, p, o, self._upload(coords_sp).long(),
+                            self._upload(coords_po).long(), o_true, s_true,
+                            len(rankings),
+                        )
+                checked = ([] if spo_pair is None else list(spo_pair))
                 pending.append(
-                    (batch, totals, torch.stack([o_spo, s_spo, o_true, s_true]))
+                    (batch, totals, torch.stack([*checked, o_true, s_true]))
                 )
                 for f in self.post_batch_hooks:
                     f(self)
@@ -383,15 +482,17 @@ class EntityRankingJob(EvaluationJob):
             with record_function("entity_ranking.fetch"):
                 totals = torch.cat([t for _, t, _ in pending], dim=2)
                 totals = totals.cpu().numpy().astype(np.int64)
+                # [o_spo, s_spo,] o_true, s_true
                 scores = torch.cat([x for _, _, x in pending], dim=1)
-                scores = scores.cpu().numpy()  # o_spo, s_spo, o_true, s_true
+                scores = scores.cpu().numpy()
             with record_function("entity_ranking.histograms"):
                 start = 0
                 for batch, _, _ in pending:
                     B = len(batch)
                     part = slice(start, start + B)
                     start += B
-                    self._check_spo_consistency(*scores[:, part])
+                    if self._spo_supported:
+                        self._check_spo_consistency(*scores[:, part])
                     self._accumulate_batch(
                         hists, rankings, totals[:, :, part], batch,
                         example_traces, B,

@@ -69,11 +69,12 @@ class EvaluationJob(TrainingOrEvaluationJob):
         raise NotImplementedError
 
     def _load(self, checkpoint: Dict):
-        """Load the checkpoint's numpy tables into the model on the job's
-        device."""
+        """Load the checkpoint's numpy tables and model state into the
+        model on the job's device."""
         if checkpoint["type"] not in ["train", "package"]:
             raise ValueError("can only evaluate train/package checkpoints")
         self.model.load_params(checkpoint["model"]["params"])
+        self.model.load_state(checkpoint["model"].get("state", {}))
         self.epoch = checkpoint.get("epoch", -1)
         self.resumed_from_job_id = checkpoint.get("job_id")
         self.trace(event="job_resumed", checkpoint_file=checkpoint.get("file"))

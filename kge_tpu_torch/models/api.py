@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,16 +29,23 @@ from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models.init import initialize, select_initialize_args
 from kge_tpu_torch.utils.misc import init_from
 from kge_tpu_torch.utils.params import (
-    params_from_state_dict, state_dict_from_params
+    params_from_state_dict, state_dict_from_params, tree_map
 )
 
 S, P, O = 0, 1, 2
 
 
 class Ctx:
-    """Per-call context: mode and non-trainable state. A
-    default-constructed Ctx is eval mode; ``Ctx(train=True)`` is training
-    mode, where dropout is not yet ported.
+    """Per-call context: mode, randomness and non-trainable state.
+
+    A default-constructed Ctx is eval mode with no randomness. In training
+    mode (``Ctx(train=True, generator=g)``) dropout draws its masks from
+    ``generator``, a ``torch.Generator`` on the tensors' device (the
+    counterpart of ``kge_tpu``'s PRNG key in its Ctx).
+
+    ``state`` holds non-trainable tensors (batch-norm running statistics)
+    read during the call; layers write updated values into ``updates``,
+    which the training job merges into the model state after the step.
 
     ``tables`` substitutes embedding tables for one call, by embedder name
     (``"entity_embedder"``, ``"relation_embedder"``): a row-sparse training
@@ -46,16 +54,26 @@ class Ctx:
     ``weights`` are the gathered rows)."""
 
     def __init__(self, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
                  state: Optional[Dict[str, Any]] = None,
                  tables: Optional[Mapping[str, torch.Tensor]] = None):
         self.train = train
+        self.generator = generator
         self.state = state if state is not None else {}
+        self.updates: Dict[str, Any] = {}
         self.tables = dict(tables or {})
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """``kge_tpu``'s dropout: ``where(bernoulli(keep), x / keep, 0)``
+        in training, the identity otherwise."""
         if not self.train or rate <= 0.0:
             return x
-        raise NotImplementedError("dropout in training is not yet ported")
+        if self.generator is None:
+            raise ValueError("this computation needs a generator in its Ctx")
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          dtype=x.dtype, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class KgeBase(nn.Module, Configurable):
@@ -76,6 +94,10 @@ class KgeBase(nn.Module, Configurable):
         args = select_initialize_args(name, raw_args)
         return initialize(generator, shape, name, args)
 
+    def init_state(self) -> Dict[str, Any]:
+        """Initial non-trainable state (batch-norm statistics, ...)."""
+        return {}
+
     def penalties(self, ctx: Ctx, **kwargs) -> List[Tuple[str, torch.Tensor]]:
         """(name, scalar) regularization terms."""
         return []
@@ -93,8 +115,21 @@ class RelationalScorer(KgeBase):
 
     supports_dot_form = False
 
-    #: combines the dot form covers
+    #: combines the dot form covers. ConvE/Transformer are sp_-only:
+    #: enough for reciprocal-wrapped ranking (both sides rewrite to sp_),
+    #: not for a bare model's _po side.
     dot_combines = ("sp_", "_po")
+
+    def __init__(self, config: Config, dataset: Dataset,
+                 configuration_key=None, *,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None,
+                 init_for_load_only: bool = False):
+        """Scorers with weights of their own (ConvE, Transformer) draw
+        them from ``generator`` on ``device``, or leave them unset with
+        ``init_for_load_only``."""
+        super().__init__(config, dataset, configuration_key)
+        self.device = torch.device(device) if device is not None else None
 
     # "native": q . c equals score_emb exactly (bilinear scorers).
     # "monotone": q . c is a strictly increasing transform of the score;
@@ -117,6 +152,38 @@ class RelationalScorer(KgeBase):
     def score_emb(self, s_emb, p_emb, o_emb, combine: str,
                   ctx: Ctx) -> torch.Tensor:
         raise NotImplementedError
+
+    def _generic_combine(self, s_emb, p_emb, o_emb, combine: str,
+                         ctx: Ctx) -> torch.Tensor:
+        """Cross-product form built from row-wise spo scoring: the rows
+        of every (query, free-slot candidate) pair are broadcast to one
+        [n * m, d] batch and scored at once (``kge_tpu`` maps the spo
+        scorer over the candidates instead; the scores are the same).
+
+        Output row i is query i; the column axis enumerates the free slot
+        (reference contract: kge/model/kge_model.py:151-213)."""
+        if combine == "sp_":
+            fixed, free = (s_emb, p_emb), o_emb
+        elif combine == "_po":
+            fixed, free = (p_emb, o_emb), s_emb
+        elif combine == "s_o":
+            fixed, free = (s_emb, o_emb), p_emb
+        else:
+            raise ValueError(f"cannot handle combine={combine!r}")
+        n, m = fixed[0].shape[0], free.shape[0]
+
+        def rows(x):  # each query row repeated for every candidate
+            return x[:, None, :].expand(n, m, x.shape[1]).reshape(n * m, -1)
+
+        cand = free[None, :, :].expand(n, m, free.shape[1]).reshape(n * m, -1)
+        a, b = rows(fixed[0]), rows(fixed[1])
+        if combine == "sp_":
+            out = self.score_emb_spo(a, b, cand, ctx)
+        elif combine == "_po":
+            out = self.score_emb_spo(cand, a, b, ctx)
+        else:
+            out = self.score_emb_spo(a, cand, b, ctx)
+        return out.reshape(n, m)
 
 
 class KgeEmbedder(KgeBase):
@@ -167,6 +234,11 @@ class KgeEmbedder(KgeBase):
     def embed_all(self, ctx: Ctx) -> torch.Tensor:
         raise NotImplementedError
 
+    @torch.no_grad()
+    def normalize_params(self):
+        """Post-step parameter constraint (e.g. Lp normalization), in
+        place."""
+
 
 class KgeModel(KgeBase):
     """A KGE model: entity/relation embedders + relational scorer.
@@ -180,25 +252,36 @@ class KgeModel(KgeBase):
     def __init__(self, config: Config, dataset: Dataset, scorer,
                  configuration_key=None, *, device: torch.device,
                  generator: Optional[torch.Generator] = None,
-                 init_for_load_only: bool = False):
+                 init_for_load_only: bool = False,
+                 create_embedders: bool = True):
+        """``scorer`` is a scorer class (built here, on ``device``) or a
+        scorer instance; ``create_embedders=False`` leaves the embedders
+        to the subclass (the reciprocal wrapper shares its base model's)."""
         super().__init__(config, dataset, configuration_key)
-        self.scorer: RelationalScorer = scorer(
-            config, dataset, self.configuration_key
-        )
         if not init_for_load_only and generator is None:
             raise ValueError(
                 "creating a model with fresh weights needs a generator "
                 "(or init_for_load_only=True)"
             )
-        for name, vocab_size in (
-            ("entity_embedder", dataset.num_entities()),
-            ("relation_embedder", dataset.num_relations()),
-        ):
-            setattr(self, name, KgeEmbedder.create(
-                config, dataset, self.configuration_key + "." + name,
-                vocab_size, device=device, generator=generator,
-                init_for_load_only=init_for_load_only,
-            ))
+        self.device = torch.device(device)
+        if isinstance(scorer, type):
+            scorer = scorer(config, dataset, self.configuration_key,
+                            device=device, generator=generator,
+                            init_for_load_only=init_for_load_only)
+        self.scorer: RelationalScorer = scorer
+        if create_embedders:
+            for name, vocab_size in (
+                ("entity_embedder", dataset.num_entities()),
+                ("relation_embedder", dataset.num_relations()),
+            ):
+                setattr(self, name, KgeEmbedder.create(
+                    config, dataset, self.configuration_key + "." + name,
+                    vocab_size, device=device, generator=generator,
+                    init_for_load_only=init_for_load_only,
+                ))
+        #: non-trainable state (``kge_tpu``'s model state: ConvE's
+        #: batch-norm statistics), a nested dict of tensors on the device
+        self.model_state: Dict[str, Any] = self.init_state()
 
     # ------------------------------------------------------------------ factory
 
@@ -235,7 +318,7 @@ class KgeModel(KgeBase):
     def create_from(checkpoint: Dict, *, device: torch.device,
                     dataset: Optional[Dataset] = None,
                     use_tmp_log_folder: bool = True) -> "KgeModel":
-        """Rebuild the model of a checkpoint, weights loaded, on
+        """Rebuild the model of a checkpoint, weights and state loaded, on
         ``device`` (reference: kge/model/kge_model.py:552-585)."""
         import tempfile
 
@@ -246,27 +329,53 @@ class KgeModel(KgeBase):
         model = KgeModel.create(config, dataset, device=device,
                                 init_for_load_only=True)
         model.load_params(checkpoint["model"]["params"])
+        model.load_state(checkpoint["model"].get("state", {}))
         return model
 
     # ------------------------------------------------------------------ params
 
     def load_params(self, tree: Mapping[str, Any]):
-        """Copy a ``kge_tpu``-layout params tree (nested dict of arrays)
-        into this model's parameters, on their device."""
+        """Copy a ``kge_tpu``-layout params tree (nested dicts and lists
+        of arrays) into this model's parameters, on their device."""
         with torch.no_grad():
             self.load_state_dict(state_dict_from_params(tree), strict=True)
 
     def params(self) -> Dict[str, Any]:
         """This model's parameters as a ``kge_tpu``-layout params tree of
         numpy arrays (empty dicts for parameterless parts, e.g. the
-        scorer)."""
+        scorer of a bilinear model)."""
         return {
             name: params_from_state_dict(child.state_dict())
             for name, child in self.named_children()
         }
 
+    def init_state(self) -> Dict[str, Any]:
+        # flat: scorer state keys (e.g. "bn1") address Ctx.state directly
+        return self.scorer.init_state()
+
+    def state(self) -> Dict[str, Any]:
+        """The model state as a ``kge_tpu``-layout tree of numpy arrays."""
+        return tree_map(lambda t: t.detach().cpu().numpy(),
+                        self.model_state)
+
+    def load_state(self, tree: Mapping[str, Any]):
+        """Take a ``kge_tpu``-layout state tree (numpy arrays), on this
+        model's device; an empty tree gives the initial state, as in
+        ``kge_tpu``'s evaluation jobs."""
+        if not tree:
+            self.model_state = self.init_state()
+            return
+        self.model_state = tree_map(
+            lambda a: torch.as_tensor(np.array(a, dtype=np.float32),
+                                      device=self.device), tree)
+
+    def default_ctx(self) -> Ctx:
+        """The eval-mode Ctx of a call that names none: no randomness, the
+        model's own state."""
+        return Ctx(state=self.model_state)
+
     def save_to(self, checkpoint: Dict) -> Dict:
-        checkpoint["model"] = {"params": self.params(), "state": {}}
+        checkpoint["model"] = {"params": self.params(), "state": self.state()}
         return checkpoint
 
     def num_parameters(self) -> int:
@@ -274,8 +383,9 @@ class KgeModel(KgeBase):
 
     @torch.no_grad()
     def normalize_params(self):
-        """Apply the embedders' parameter constraints (Lp normalization),
-        in place; the training job calls it after every update."""
+        """Apply the embedders' parameter constraints (Lp
+        normalization), in place; the training job calls it after every
+        update."""
         self.get_s_embedder().normalize_params()
         self.get_p_embedder().normalize_params()
 
@@ -341,7 +451,7 @@ class KgeModel(KgeBase):
 
     def score_spo(self, s, p, o, direction: Optional[str] = None,
                   ctx: Optional[Ctx] = None) -> torch.Tensor:
-        ctx = ctx or Ctx()
+        ctx = ctx or self.default_ctx()
         s_emb = self.get_s_embedder().embed(s, ctx)
         p_emb = self.get_p_embedder().embed(p, ctx)
         o_emb = self.get_o_embedder().embed(o, ctx)
@@ -349,7 +459,7 @@ class KgeModel(KgeBase):
 
     def score_sp(self, s, p, o_subset=None,
                  ctx: Optional[Ctx] = None) -> torch.Tensor:
-        ctx = ctx or Ctx()
+        ctx = ctx or self.default_ctx()
         s_emb = self.get_s_embedder().embed(s, ctx)
         p_emb = self.get_p_embedder().embed(p, ctx)
         if o_subset is not None:
@@ -360,7 +470,7 @@ class KgeModel(KgeBase):
 
     def score_po(self, p, o, s_subset=None,
                  ctx: Optional[Ctx] = None) -> torch.Tensor:
-        ctx = ctx or Ctx()
+        ctx = ctx or self.default_ctx()
         if s_subset is not None:
             s_emb = self.get_s_embedder().embed(s_subset, ctx)
         else:
@@ -371,7 +481,7 @@ class KgeModel(KgeBase):
 
     def score_so(self, s, o, p_subset=None,
                  ctx: Optional[Ctx] = None) -> torch.Tensor:
-        ctx = ctx or Ctx()
+        ctx = ctx or self.default_ctx()
         s_emb = self.get_s_embedder().embed(s, ctx)
         o_emb = self.get_o_embedder().embed(o, ctx)
         if p_subset is not None:
@@ -384,7 +494,7 @@ class KgeModel(KgeBase):
                     ctx: Optional[Ctx] = None) -> torch.Tensor:
         """[n, 2m]: (s,p,?) scores then (?,p,o) scores over the entity
         subset."""
-        ctx = ctx or Ctx()
+        ctx = ctx or self.default_ctx()
         s_emb = self.get_s_embedder().embed(s, ctx)
         p_emb = self.get_p_embedder().embed(p, ctx)
         o_emb = self.get_o_embedder().embed(o, ctx)

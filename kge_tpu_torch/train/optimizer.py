@@ -50,7 +50,7 @@ import torch
 
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.ops.row_update import row_update_groups
-from kge_tpu_torch.utils.params import tree_leaves
+from kge_tpu_torch.utils.params import nest, tree_leaves
 
 #: per-parameter state slots of each optimizer type, in optax's order
 STATE_SLOTS = {"adagrad": ("sum",), "adam": ("mu", "nu"),
@@ -59,10 +59,6 @@ STATE_SLOTS = {"adagrad": ("sum",), "adam": ("mu", "nu"),
 #: types whose optax state holds a step count (an int32 scalar per group)
 COUNTED = ("adam", "adamw", "adamax")
 INT32_MAX = 2 ** 31 - 1
-
-
-def _path_key(name: str) -> Tuple[str, ...]:
-    return tuple(name.split("."))
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -306,18 +302,19 @@ class KgeOptimizer:
         for g, count in state.get("count", {}).items():
             dense[g]["count"] = count
         sparse: Dict[str, Any] = {path: {} for path in self.sparse_paths}
-        for name in sorted(self.params, key=_path_key):
+        for name in self.params:
             for slot in self._slots(self.group_of[name]):
                 if name not in state.get(slot, {}):
                     continue
                 if name in self.sparse_paths:
                     sparse[name][slot] = state[slot][name]
                     continue
-                node = dense[self.group_of[name]][slot]
-                *parents, leaf = name.split(".")
-                for part in parents:
-                    node = node.setdefault(part, {})
-                node[leaf] = state[slot][name]
+                dense[self.group_of[name]][slot][name] = state[slot][name]
+        for g in self.group_names:
+            for slot in self._slots(g):
+                # nested by path; a list of layers stays a list, whose
+                # leaves JAX takes in index order
+                dense[g][slot] = nest(dense[g][slot])
         if self.sparse_paths:
             return {"sparse": sparse, "tx": dense}
         return dense

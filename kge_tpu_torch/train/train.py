@@ -5,7 +5,14 @@ The epoch loop, validation, early stopping, learning-rate control and
 checkpoint rotation follow ``kge_tpu``. The step is plain PyTorch on one
 device: the subbatch losses (each divided by the true batch size) and
 their backward passes, the penalty and its backward, then the optimizer
-and the parameter constraints. In a row-sparse run
+and the parameter constraints. Each subbatch (and the penalty) runs in a
+training ``Ctx`` whose dropout generator is seeded from
+``random_seed.torch``, the epoch, the step and the subbatch, so a resumed
+run draws the masks of the uninterrupted one (the torch and JAX PRNG
+streams differ: masks are held by their statistics, trajectories at
+dropout 0). The model state (ConvE's batch-norm statistics) goes through
+each step as in ``kge_tpu``: every subbatch reads the step's state, the
+last subbatch's updates win, and checkpoints carry it. In a row-sparse run
 (``_sparse_table_paths``) the loss reads the rows the strategy gathered
 (``_step_context``) and the optimizer updates only those rows of the
 tables. As in ``kge_tpu``, every batch is padded to
@@ -31,6 +38,7 @@ dispatch, the prefetch thread, row chunking, ``tpu.profile_dir`` and
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import time
@@ -105,6 +113,9 @@ class TrainingJob(TrainingOrEvaluationJob):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.generator = torch_generator_from_config(config, self.device)
+        #: dropout's generator, reseeded per subbatch (``_dropout_generator``)
+        self._dropout_gen = torch_generator_from_config(config, self.device)
+        self._torch_seed = rng_seed_from_config(config, "torch")
         if model is None:
             model = KgeModel.create(config, dataset, device=self.device,
                                     generator=self.generator)
@@ -128,8 +139,8 @@ class TrainingJob(TrainingOrEvaluationJob):
         self.type_str = "generic"
         self.post_valid_hooks: List[Callable] = []
         # kge_tpu's PRNG key (uint32[2]), kept for its checkpoints: the
-        # port draws nothing from it (dropout and on-device sampling are
-        # not ported); a resumed run passes the loaded one on unchanged
+        # port draws nothing from it (its dropout masks come from torch
+        # generators); a resumed run passes the loaded one on unchanged
         self.rng = torch.randint(
             0, 2 ** 32, (2,), generator=self.generator, device=self.device,
             dtype=torch.int64,
@@ -181,10 +192,29 @@ class TrainingJob(TrainingOrEvaluationJob):
         return ()
 
     def _step_context(self, batch: Dict[str, Any]):
-        """The step's ``Ctx`` and its gathered rows ``{table name: (uniq,
-        rows)}`` (none here; negative sampling gathers them in a
-        row-sparse run)."""
-        return Ctx(train=True), {}
+        """The step's training ``Ctx`` (the model state to read) and its
+        gathered rows ``{table name: (uniq, rows)}`` (none here; negative
+        sampling gathers them in a row-sparse run)."""
+        return Ctx(train=True, state=self.model.model_state), {}
+
+    def _dropout_generator(self, step: int, part: int) -> torch.Generator:
+        """The generator of the dropout masks of one part of a step (a
+        subbatch, or -1 for the penalty): seeded from
+        ``random_seed.torch``, the epoch, the step and the part, so a
+        resumed run draws the uninterrupted run's masks; an unseeded job
+        draws from one stream."""
+        if self._torch_seed >= 0:
+            key = f"{self._torch_seed}/{self.epoch}/{step}/{part}".encode()
+            digest = hashlib.blake2b(key, digest_size=8).digest()
+            self._dropout_gen.manual_seed(
+                int.from_bytes(digest, "little") >> 1)
+        return self._dropout_gen
+
+    def _part_context(self, ctx: Ctx, step: int, part: int) -> Ctx:
+        """A fresh training Ctx for one part of a step: the step's state
+        and tables, its own dropout generator, no updates yet."""
+        return Ctx(train=True, generator=self._dropout_generator(step, part),
+                   state=ctx.state, tables=ctx.tables)
 
     def _prepare(self):
         """Subclasses set self.num_examples and any precomputed indexes."""
@@ -231,15 +261,18 @@ class TrainingJob(TrainingOrEvaluationJob):
         sub = self.subbatch_size if self.subbatch_size > 0 else size
         return [slice(i, min(i + sub, size)) for i in range(0, size, sub)]
 
-    def _step(self, batch: Dict[str, Any], lrs: Dict[str, float]
-              ) -> Dict[str, Any]:
-        """One train step on an uploaded batch; returns its metrics as
-        device tensors (no host sync)."""
+    def _step(self, batch: Dict[str, Any], lrs: Dict[str, float],
+              step: int = 0) -> Dict[str, Any]:
+        """One train step (the epoch's ``step``-th) on an uploaded batch;
+        returns its metrics as device tensors (no host sync)."""
         slices = self._subbatch_slices()
         if self.is_forward_only:
+            ctx, _ = self._step_context(batch)
             with torch.no_grad(), record_function("train.forward"):
-                total = sum(self._subbatch_loss(Ctx(train=True), batch, sl)
-                            for sl in slices)
+                total = sum(
+                    self._subbatch_loss(self._part_context(ctx, step, i),
+                                        batch, sl)
+                    for i, sl in enumerate(slices))
             return {"avg_loss": total, "avg_penalty": 0.0, "avg_cost": total}
 
         params = list(self.model.parameters())
@@ -248,19 +281,24 @@ class TrainingJob(TrainingOrEvaluationJob):
         with record_function("train.forward"):
             ctx, rows = self._step_context(batch)
         total_loss = 0.0
-        for sl in slices:
+        updates: Dict[str, Any] = {}
+        for i, sl in enumerate(slices):
             with record_function("train.forward"):
-                value = self._subbatch_loss(ctx, batch, sl)
+                part = self._part_context(ctx, step, i)
+                value = self._subbatch_loss(part, batch, sl)
             if isinstance(value, torch.Tensor):
                 if value.requires_grad:
                     with record_function("train.backward"):
                         value.backward()
                 value = value.detach()
             total_loss = total_loss + value
+            # the last subbatch's state updates win (kge_tpu's merge)
+            updates.update(part.updates)
 
         with record_function("train.forward"):
             terms = self.model.penalties(
-                ctx, batch=self._penalty_batch(batch)
+                self._part_context(ctx, step, -1),
+                batch=self._penalty_batch(batch)
             )
             penalty_total = 0.0
             for _, v in terms:
@@ -279,6 +317,8 @@ class TrainingJob(TrainingOrEvaluationJob):
                     {name: (uniq, gathered.grad)
                      for name, (uniq, gathered) in rows.items()}, lrs)
             self.model.normalize_params()
+        if updates:
+            self.model.model_state = {**self.model.model_state, **updates}
         return {
             "avg_loss": total_loss,
             "avg_penalty": penalty_total,
@@ -421,7 +461,7 @@ class TrainingJob(TrainingOrEvaluationJob):
             with record_function("train.upload"):
                 batch = self._put_batch(batch_np)
             prepare_time += time.time() - t0
-            metrics = self._step(batch, lrs)
+            metrics = self._step(batch, lrs, num_batches)
             batch_metrics.append((float(batch_np["size"]), metrics))
             num_batches += 1
             for f in self.post_batch_hooks:
@@ -510,6 +550,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         if checkpoint["type"] != "train":
             raise ValueError("training can only be continued from trained models")
         self.model.load_params(checkpoint["model"]["params"])
+        self.model.load_state(checkpoint["model"].get("state", {}))
         if checkpoint.get("opt_state") is not None and not self.is_forward_only:
             self.optimizer.load_state(self.opt_state, checkpoint["opt_state"])
         self.epoch = checkpoint["epoch"]

@@ -44,7 +44,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from kge_tpu_torch.models import Ctx, KgeModel
+from kge_tpu_torch.models import Ctx, KgeModel, ReciprocalRelationsModel
 from kge_tpu_torch.models.embedder.lookup import LookupEmbedder
 from kge_tpu_torch.ops.gather import row_gather
 from kge_tpu_torch.ops.negsamp_loss import expand_counts, shared_ce_loss
@@ -98,8 +98,8 @@ class TrainingJobNegativeSampling(TrainingJob):
         their optimizer state. ``kge_tpu``'s rules: ``auto`` turns it on
         where it gives the dense numbers and the entity table is at least
         32 times the rows a batch touches; ``always`` raises where it does
-        not apply. (``kge_tpu``'s rules for reciprocal and graph models
-        have no counterpart here: the port has neither.)"""
+        not apply. (``kge_tpu``'s rule for graph models has no
+        counterpart here: the port has none.)"""
         config = self.config
         # canonical values are YAML-safe (unquoted on/off parse as YAML
         # booleans); accept legacy aliases
@@ -127,6 +127,8 @@ class TrainingJobNegativeSampling(TrainingJob):
             reasons.append("subbatch gradient accumulation is enabled")
         if config.get("negative_sampling.implementation") == "all":
             reasons.append("implementation 'all' scores every entity")
+        if isinstance(m, ReciprocalRelationsModel):
+            reasons.append("reciprocal model rewrites raw relation indices")
         if type(m).penalties is not KgeModel.penalties:
             reasons.append(f"{type(m).__name__} defines whole-table penalties")
         if type(m).normalize_params is not KgeModel.normalize_params:
@@ -208,7 +210,8 @@ class TrainingJobNegativeSampling(TrainingJob):
             gathered = table.detach().index_select(0, uniq).requires_grad_()
             rows[path] = (uniq, gathered)
             tables[path.split(".")[0]] = gathered
-        return Ctx(train=True, tables=tables), rows
+        return Ctx(train=True, state=self.model.model_state,
+                   tables=tables), rows
 
     def _prepare(self):
         self._implementation = self.config.check(
@@ -439,7 +442,11 @@ class TrainingJobNegativeSampling(TrainingJob):
                 _, cand = model.dot_candidates(unique, ctx=ctx, sides=("po",))
                 _, pos_cand = model.dot_candidates(s, ctx=ctx, sides=("po",))
             pos = torch.sum(q * pos_cand, dim=1)
-            total = total + shared_ce_loss(q, cand, pos, counts, weights)
+            # the kernel reads row-major operands (CP's candidates are a
+            # column slice of the rows, the Transformer's queries a
+            # strided slice of its encoder output)
+            total = total + shared_ce_loss(q.contiguous(), cand.contiguous(),
+                                           pos, counts, weights)
         return total
 
     # ------------------------------------------------------------------ scoring

@@ -268,18 +268,24 @@ from kge_tpu_torch import cli
 folder = sys.argv[1]
 toy = "examples/toy-complex-train.yaml"
 cpu = ["--job.device", "cpu", "--console.quiet", "true",
-       "--lookup_embedder.dim", "16", "--valid.every", "1"]
+       "--valid.every", "1"]
+dim = ["--lookup_embedder.dim", "16"]
 runs = {
-    "kvsall-adam": ["--train.loss", "bce", "--KvsAll.label_smoothing", "0.1",
+    "kvsall-adam": [*dim, "--train.loss", "bce",
+                    "--KvsAll.label_smoothing", "0.1",
                     "--train.optimizer.default.type", "Adam",
                     "--train.optimizer.default.args.lr", "0.01"],
-    "1vsall": ["--train.type", "1vsAll"],
-    "triple": ["--train.type", "negative_sampling"],
+    "1vsall": [*dim, "--train.type", "1vsAll"],
+    "triple": [*dim, "--train.type", "negative_sampling"],
+    # reciprocal ConvE by KvsAll with Adam and its default dropout
+    "conve": ["--conve.entity_embedder.dim", "32",
+              "--conve.relation_embedder.dim", "32"],
 }
+examples = {"conve": "examples/toy-conve-train.yaml"}
 epochs = {}
 for name, options in runs.items():
     run = folder + "/" + name
-    started = cli.main(["start", toy, "--folder", run,
+    started = cli.main(["start", examples.get(name, toy), "--folder", run,
                         "--train.max_epochs", "1", *options, *cpu])
     resumed = cli.main(["resume", run, "--train.max_epochs", "2", *cpu])
     epochs[name] = [started["epoch"], resumed["epoch"], resumed["type"]]
@@ -290,10 +296,11 @@ print(json.dumps(dict(loaded=loaded, epochs=epochs)))
 
 
 def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
-    """start and resume of a KvsAll run with bce and Adam, a 1vsAll run
-    and a run of the default sampler (``triple`` scoring), in a
-    subprocess that loads no JAX module; kge_tpu resumes each port
-    checkpoint."""
+    """start and resume of a KvsAll run with bce and Adam, a 1vsAll run,
+    a run of the default sampler (``triple`` scoring) and reciprocal
+    ConvE (examples/toy-conve-train.yaml: KvsAll, Adam, dropout,
+    batch-norm state), in a subprocess that loads no JAX module; kge_tpu
+    resumes each port checkpoint."""
     folder = str(tmp_path / "runs")
     r = _run(["-c", STRATEGY_SCRIPT, folder],
              env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -302,12 +309,18 @@ def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
     assert result["loaded"] == []
     assert result["epochs"] == {"kvsall-adam": [1, 2, "KvsAll"],
                                 "1vsall": [1, 2, "1vsAll"],
-                                "triple": [1, 2, "negative_sampling"]}
+                                "triple": [1, 2, "negative_sampling"],
+                                "conve": [1, 2, "KvsAll"]}
     with open(os.path.join(folder, "triple", "kge.log")) as f:
         assert "Preparing negative sampling with 'triple' scoring" in f.read()
-    for name in ("kvsall-adam", "1vsall", "triple"):
+    for name in ("kvsall-adam", "1vsall", "triple", "conve"):
         checkpoint = jax_load_checkpoint(
             os.path.join(folder, name, "checkpoint_00002.pt"))
+        if name == "conve":
+            # the batch-norm statistics, updated in training
+            state = checkpoint["model"]["state"]
+            assert set(state) == {"bn1", "bn2"}
+            assert not np.allclose(state["bn2"]["var"], 1.0)
         checkpoint.pop("folder")
         config = JaxConfig.create_from(checkpoint)
         config.set("train.max_epochs", 3)

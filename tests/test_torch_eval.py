@@ -160,5 +160,16 @@ def test_nan_scores_rank_last_not_first():
 
 
 def test_generic_implementation_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        jobs("dataset_test", {"entity_ranking.implementation": "generic"})
+    """The generic route (once refused here) is ported: ComplEx ranked by
+    chunked ``score_sp_po`` gives kge_tpu's generic metrics
+    (tests/test_torch_eval_routes.py holds the other models)."""
+    options = {"entity_ranking.implementation": "generic",
+               "entity_ranking.chunk_size": 3}
+    jax_job, job, _ = jobs("dataset_test", options)
+    assert not job._use_fused()
+    want = _metrics(jax_job._run())
+    got = _metrics(job._run())
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key], value, rtol=1e-9, atol=1e-9,
+                                   err_msg=key)

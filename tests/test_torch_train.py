@@ -254,7 +254,7 @@ def _ids(options):
 
 @pytest.mark.parametrize("options", [
     {"tpu.on_device_sampling": "always"},
-    {"lookup_embedder.dropout": 0.1},
+    {"lookup_embedder.pretrain.model_filename": "model.pt"},
     {"tpu.compute_dtype": "bfloat16"},
     {"tpu.mesh.data": 2},
     {"tpu.prefetch_batches": 2},
@@ -276,6 +276,7 @@ def test_unported_modes_raise(options):
     {"negative_sampling.implementation": "triple"},
     {"train.type": "KvsAll"},
     {"train.type": "1vsAll"},
+    {"lookup_embedder.dropout": 0.1},
 ], ids=_ids)
 def test_formerly_unported_modes_train(options):
     """The modes this test file once listed as raising train an epoch
