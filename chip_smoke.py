@@ -110,11 +110,11 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    block of ``examples/recipes/fb15k237-compgcn.yaml`` (KvsAll, bce,
    label smoothing 0.1, Adam lr 0.001, batch 128, the sp_ and _po query
    types, tpu.steps_per_dispatch at its default 4, so the batch order is
-   regrouped) on ComplEx dim 128 in place of CompGCN, 2 epochs with a
-   validation after each (K2 276 times, K1 and K3 never), ``resume`` to
-   epoch 3 (K2 138 times); losses finite and falling, MRR in (0, 1];
+   regrouped) on ComplEx dim 128 in place of CompGCN, 1 epoch with a
+   validation (K2 138 times, K1 and K3 never), ``resume`` to epoch 2 (K2
+   138 times); losses finite, MRR in (0, 1];
    epoch 1 again from ``checkpoint_00000.pt`` on the card and on the
-   host, its first 100 batches (a host epoch takes minutes): the first
+   host, its first 50 batches (a host epoch takes minutes): the first
    batch within 1e-5 relative, their avg_loss within 1e-3 (the ConvE
    phase profiles the KvsAll path);
 12. 1vsAll phase: one epoch with kl, Adagrad lr 0.2, batch 1024 and a
@@ -139,23 +139,43 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    phase): reciprocal ConvE by KvsAll at its published widths (dim 200
    as 20 x 10, 32 3 x 3 filters, dropout 0.2/0.2/0.3, label smoothing
    0.1, batch 128, Adam lr 0.003, ExponentialLR 0.995) on the
-   FB15k-237-size graph, 2 epochs with a validation after each (K2 138
-   times in each, K1 and K3 never), ``resume`` to epoch 3; the first 100
-   batches of epoch 1 card vs host at dropout 0 (first batch within
-   1e-5, their avg_loss within 1e-3); dropout on the card by its
-   statistics; one epoch profiled (device busy share, peak memory, top
-   kernels);
+   FB15k-237-size graph, 1 epoch with a validation (K2 138 times, K1 and
+   K3 never), ``resume`` to epoch 2; the first 50 batches of epoch 1
+   card vs host at dropout 0 (first batch within 1e-5, their avg_loss
+   within 1e-3); dropout on the card by its statistics; a window of 200
+   steps profiled (device busy share, peak memory, top kernels);
 16. scorer phase: DistMult, CP, SimplE, RESCAL, RelationalTucker3,
    TransE and RotatE (L1 and L2), TransH and the reciprocal Transformer
    at HittER's widths (``SCORERS``), each trained 20 steps on the card
    and from the same initial checkpoint on the host (first batch within
    1e-5, every batch within 1e-3), then its card-trained checkpoint
-   evaluated on the first 2,000 test triples on the card and on the host
+   evaluated on the first 500 test triples on the card and on the host
    (metrics within 1e-4, rank and tie counts equal but for pairs at the
    tie boundary within the float32 rounding of their scores, found in
    float64); each run asserts its route by the launches: K2
-   40 in a fused evaluation and 0 in a generic one, K1 40 for the native
-   dot forms' shared ``kl`` training, K3 20 for TransE-L1 row-sparse.
+   10 in a fused evaluation and 0 in a generic one, K1 40 for the native
+   dot forms' shared ``kl`` training, K3 20 for TransE-L1 row-sparse;
+17. CompGCN phase, the main path of this slice (run after the eval
+   phase): ``start`` of ``examples/recipes/fb15k237-compgcn.yaml`` as it
+   is (one message-passing layer, direction propagation, ccorr, edge
+   norm, tanh, dropout 0.3 and 0.1, a linear relation transform,
+   reciprocal ConvE at dim 200, KvsAll with bce and label smoothing 0.1,
+   batch 128, Adam lr 0.001) on the FB15k-237-size graph, 1 epoch with a
+   validation, ``resume`` for 1 more; K1, K2 and K3 never launched (the
+   generic eval route, dense training); the first 5 batches of epoch 1
+   card vs host at dropout 0 (first batch within 1e-5, their avg_loss
+   within 1e-3; a host step runs the encoder over the whole graph); a
+   window of 200 steps profiled (ms a step, queries/s, the
+   ``train.*`` spans, device busy share, top kernels, peak memory);
+18. R-GNN encoders phase: the FB15k-237 recipes of R-GCN (dim 500, 100
+   blocks, a new 30,000-triple edge-neighbourhood subgraph an epoch, bce
+   negative sampling), W-GCN (2 layers, ConvE) and RAGAT (2 heads,
+   ``cross_weighted``, message weight) and the toy CompGCN + TransE
+   example's configuration, at dropout 0: 3 steps card vs host (first
+   batch within 1e-5, each within 1e-2: Adam's sign trap), then an
+   evaluation of the first
+   2,000 test triples card vs host on the generic route (metrics within
+   1e-4, counts as in phase 16); K1, K2 and K3 never launched.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
 every run that drives a path, ``launches_by_phase``; K2's ``launches``
@@ -210,7 +230,7 @@ TRAIN_STEPS = math.ceil(FB15K237["splits"]["train"] / TRAIN_BATCH)
 VALID_LAUNCHES = 2 * math.ceil(FB15K237["splits"]["valid"] / VALID_BATCH)
 # KvsAll's batch (examples/recipes/fb15k237-compgcn.yaml); the host
 # compares this many of its batches with the card
-KVSALL_BATCH, HOST_BATCHES = 128, 100
+KVSALL_BATCH, HOST_BATCHES = 128, 50
 W5M_STEPS = math.ceil(WIKIDATA5M["splits"]["train"] / TRAIN_BATCH)
 # rows a step touches: 2 per triple and 128 + 1 shared negatives per
 # entity slot; every relation row (828, padded to 832)
@@ -236,7 +256,53 @@ CONVE_NO_DROPOUT = [
     _BASE + "entity_embedder.dropout", "0.0",
     _BASE + "relation_embedder.dropout", "0.0"]
 # every other scorer: steps trained card vs host, test triples evaluated
-SCORER_STEPS, SCORER_TEST = 20, 2000
+SCORER_STEPS, SCORER_TEST = 20, 500
+# the KvsAll main paths' profiles hold a window of this many steps (the
+# profiler's records of a whole epoch take minutes to collect)
+PROFILE_STEPS = 200
+# the R-GNN main path: CompGCN's FB15k-237 recipe (Vashishth et al.,
+# ICLR 2020, arXiv:1911.03082); the host compares its first batches (a
+# host step runs the encoder over the whole graph)
+COMPGCN_RECIPE = os.path.join("examples", "recipes", "fb15k237-compgcn.yaml")
+COMPGCN_HOST_BATCHES = 5
+COMPGCN_NO_DROPOUT = [
+    "--compgcn.encoder.emb_entity_dropout", "0.0",
+    "--compgcn.encoder.message_passing_args.emb_propagation_dropout", "0.0",
+    "--conve.feature_map_dropout", "0.0", "--conve.projection_dropout", "0.0"]
+# the other encoders: their FB15k-237 recipes and the toy CompGCN + TransE
+# example at its widths, each with its dropout at 0 (card vs host), its
+# epochs (R-GCN's recipe takes one full-batch step an epoch over a new
+# 30,000-triple subgraph) cut to RGNN_STEPS steps
+_RECIPES = os.path.join("examples", "recipes")
+RGNN_ENCODERS = {
+    "rgcn": dict(recipe=os.path.join(_RECIPES, "fb15k237-rgcn.yaml"),
+                 epochs=3, options={"rgcn.encoder.edge_dropout": 0.0,
+                                    "rgcn.encoder.self_edge_dropout": 0.0}),
+    "wgcn": dict(recipe=os.path.join(_RECIPES, "fb15k237-wgcn.yaml"),
+                 epochs=1, options={
+                     "wgcn.encoder.emb_entity_dropout": 0.0,
+                     "wgcn.decoder.base_model.feature_map_dropout": 0.0,
+                     "wgcn.decoder.base_model.projection_dropout": 0.0,
+                     # rel_transformation self: the relations are ConvE's
+                     # own embedder's, with its dropout
+                     "wgcn.decoder.base_model.relation_embedder.dropout":
+                         0.0}),
+    "ragat": dict(recipe=os.path.join(_RECIPES, "fb15k237-ragat.yaml"),
+                  epochs=1, options={
+                      "ragat.encoder.emb_entity_dropout": 0.0,
+                      "ragat.encoder.message_passing_args."
+                      "emb_propagation_dropout": 0.0,
+                      "conve.feature_map_dropout": 0.0,
+                      "conve.projection_dropout": 0.0}),
+    "transe-compgcn": dict(
+        recipe=os.path.join("examples", "toy-transe-compgcn-train.yaml"),
+        epochs=1, options={"compgcn.encoder.emb_entity_dropout": 0.0}),
+}
+RGNN_STEPS, RGNN_TEST, RGNN_EVAL_BATCH = 3, 2000, 500
+#: the launches of a run that takes no kernel's path (the R-GNN paths:
+#: the generic eval route, dense training, no fused loss)
+NO_KERNELS = dict(rank_counts=0, shared_ce_loss=0, adagrad_row_update=0,
+                  sgd_row_update=0)
 # Adagrad with an initial accumulator: its update is smooth in the
 # gradient, so the card and the host stay on one trajectory (from a zero
 # accumulator, Adagrad's and Adam's first update of an element is about
@@ -1512,24 +1578,26 @@ def card_vs_host(label: str, run: str, scratch: str, flags=(),
     return out
 
 
-def profiled_epoch(label: str, run: str, scratch: str, epoch: int):
-    """Epoch ``epoch`` of ``run`` (from its checkpoint of the epoch
-    before), without validation, under torch.profiler: ms a step,
-    examples/s, the device's busy share and peak memory."""
+def profiled_window(label: str, run: str, scratch: str, epoch: int):
+    """The first PROFILE_STEPS KvsAll steps of epoch ``epoch`` of ``run``
+    (from its checkpoint of the epoch before), without validation, under
+    torch.profiler: ms a step, queries/s, the device's busy share and
+    peak memory."""
     from kge_tpu_torch import cli
 
     folder = os.path.join(scratch, f"{label}-profiled")
     copy_run(run, folder, f"checkpoint_{epoch - 1:05d}.pt")
     base = fresh_device_memory()
-    entry, device = profile_run(
-        f"train {label}", "train.", lambda: cli.main([
-            "resume", folder, "--train.max_epochs", str(epoch),
-            "--valid.every", "0"]), epoch_only=True)
+    with first_batches(PROFILE_STEPS):
+        entry, device = profile_run(
+            f"train {label}", "train.", lambda: cli.main([
+                "resume", folder, "--train.max_epochs", str(epoch),
+                "--valid.every", "0"]), epoch_only=True)
     device_ms = sum(ms for ms, _ in device.values())
-    print(f"train {label} profiled epoch: " + json.dumps(dict(
-        epoch_seconds=entry["epoch_time"], batches=entry["batches"],
+    print(f"train {label} profiled window: " + json.dumps(dict(
+        seconds=entry["epoch_time"], batches=entry["batches"],
         ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
-        examples_per_s=entry["size"] / entry["epoch_time"],
+        queries_per_s=entry["batches"] * KVSALL_BATCH / entry["epoch_time"],
         device_busy_share=device_ms / (1e3 * entry["epoch_time"]),
         peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
         device_memory_before_bytes=base)), flush=True)
@@ -1569,14 +1637,14 @@ def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     examples/recipes/fb15k237-compgcn.yaml (bce, label smoothing 0.1, Adam
     lr 0.001, batch 128, the sp_ and _po query types, the default
     tpu.steps_per_dispatch, so the batch order is regrouped) on ComplEx
-    dim 128 in place of CompGCN, 2 epochs with a validation after each,
-    ``resume`` to epoch 3, card vs host."""
+    dim 128 in place of CompGCN, 1 epoch with a validation, ``resume`` to
+    epoch 2, card vs host."""
     from kge_tpu_torch import cli
 
     config_file = os.path.join(scratch, "complex-kvsall.yaml")
     write_strategy_config(
         config_file, dataset_folder, seed,
-        dict(type="KvsAll", loss="bce", max_epochs=2,
+        dict(type="KvsAll", loss="bce", max_epochs=1,
              batch_size=KVSALL_BATCH,
              optimizer={"default": {"type": "Adam", "args": {"lr": 0.001}}}),
         KvsAll={"label_smoothing": 0.1})
@@ -1592,20 +1660,20 @@ def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     if "KvsAll orders its batches in runs of up to 4" not in log:
         fail("the KvsAll run did not regroup its batch order")
     epochs = check_start("kvsall", run, start_counts, dict(
-        rank_counts=2 * VALID_LAUNCHES, shared_ce_loss=0,
-        adagrad_row_update=0, sgd_row_update=0), 2)
+        rank_counts=VALID_LAUNCHES, shared_ce_loss=0,
+        adagrad_row_update=0, sgd_row_update=0), 1)
     print(f"train kvsall start seconds_cli {seconds}", flush=True)
 
     reset_counts(kernels)
-    resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
+    resumed = cli.main(["resume", run, "--train.max_epochs", "2"])
     torch.cuda.synchronize()
     resume_counts = counts(kernels)
     print("train kvsall resume on the card: " + json.dumps(dict(
         epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
         epoch_seconds=resumed["epoch_time"], launches=resume_counts)),
         flush=True)
-    if resumed["epoch"] != 3 or not math.isfinite(resumed["avg_loss"]):
-        fail(f"the KvsAll resume did not reach a finite epoch 3: {resumed}")
+    if resumed["epoch"] != 2 or not math.isfinite(resumed["avg_loss"]):
+        fail(f"the KvsAll resume did not reach a finite epoch 2: {resumed}")
     expect_counts("the resumed KvsAll epoch", resume_counts, dict(
         rank_counts=VALID_LAUNCHES, shared_ce_loss=0, adagrad_row_update=0))
 
@@ -2055,7 +2123,7 @@ def write_conve_config(path: str, dataset_folder: str, seed: int):
     code's README): embedding dim 200 as a 20 x 10 image, 32 3 x 3
     filters, input/feature-map/projection dropout 0.2/0.2/0.3, label
     smoothing 0.1, batch 128, Adam lr 0.003, ExponentialLR gamma 0.995;
-    2 epochs with a validation after each."""
+    1 epoch with a validation."""
     config = {
         "job": {"type": "train"},
         "dataset": {"name": dataset_folder},
@@ -2068,7 +2136,7 @@ def write_conve_config(path: str, dataset_folder: str, seed: int):
                                   "initialize": "xavier_normal_"},
         },
         "train": {
-            "type": "KvsAll", "loss": "bce", "max_epochs": 2,
+            "type": "KvsAll", "loss": "bce", "max_epochs": 1,
             "batch_size": KVSALL_BATCH,
             "optimizer": {"default": {"type": "Adam",
                                       "args": {"lr": CONVE_LR}}},
@@ -2137,11 +2205,12 @@ def dropout_statistics(device):
 
 def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
     """The slice's main path: reciprocal ConvE by KvsAll at its published
-    widths (``write_conve_config``) on the FB15k-237-size graph, 2 epochs
-    with a validation after each (each through K2, 138 launches), resume
-    to epoch 3; the first 100 batches of epoch 1 again on the card and on
-    the host at dropout 0 (torch's CPU and CUDA generators draw other
-    masks); dropout by its statistics; one epoch profiled."""
+    widths (``write_conve_config``) on the FB15k-237-size graph, 1 epoch
+    and a validation (through K2, 138 launches), resume to epoch 2; the
+    first HOST_BATCHES batches of epoch 1 again on the card and on the
+    host at dropout 0 (torch's CPU and CUDA generators draw other masks);
+    dropout by its statistics; a window of PROFILE_STEPS steps
+    profiled."""
     from kge_tpu_torch import cli
     from kge_tpu_torch.ops import rank_count as rc
 
@@ -2157,24 +2226,24 @@ def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
     seconds = time.perf_counter() - t0
     start_counts = counts(kernels)
     epochs = check_start("conve", run, start_counts, dict(
-        rank_counts=2 * VALID_LAUNCHES, shared_ce_loss=0,
-        adagrad_row_update=0, sgd_row_update=0), 2)
+        rank_counts=VALID_LAUNCHES, shared_ce_loss=0,
+        adagrad_row_update=0, sgd_row_update=0), 1)
     print(f"train conve start seconds_cli {seconds}; K2 launches per "
           f"validation {per_validation}", flush=True)
-    if per_validation != [VALID_LAUNCHES, VALID_LAUNCHES]:
+    if per_validation != [VALID_LAUNCHES]:
         fail(f"ConvE's validations launched K2 {per_validation} times, "
              f"expected {VALID_LAUNCHES} each")
 
     reset_counts(kernels)
-    resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
+    resumed = cli.main(["resume", run, "--train.max_epochs", "2"])
     torch.cuda.synchronize()
     resume_counts = counts(kernels)
     print("train conve resume on the card: " + json.dumps(dict(
         epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
         epoch_seconds=resumed["epoch_time"], launches=resume_counts)),
         flush=True)
-    if resumed["epoch"] != 3 or not math.isfinite(resumed["avg_loss"]):
-        fail(f"the ConvE resume did not reach a finite epoch 3: {resumed}")
+    if resumed["epoch"] != 2 or not math.isfinite(resumed["avg_loss"]):
+        fail(f"the ConvE resume did not reach a finite epoch 2: {resumed}")
     expect_counts("the resumed ConvE epoch", resume_counts, dict(
         rank_counts=VALID_LAUNCHES, shared_ce_loss=0, adagrad_row_update=0,
         sgd_row_update=0))
@@ -2189,7 +2258,7 @@ def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
     if compared["avg_loss_relative_difference"] > 1e-3:
         fail(f"ConvE first {HOST_BATCHES} batches, card vs host: "
              f"{compared}")
-    profiled_epoch("conve", run, scratch, 4)
+    profiled_window("conve", run, scratch, 3)
     return dict(start=start_counts, resume=resume_counts,
                 per_validation=per_validation,
                 queries_per_s=[e["size"] / e["epoch_time"] for e in epochs])
@@ -2267,7 +2336,8 @@ def recorded_counts(record: list):
         Job.job_created_hooks.remove(hook)
 
 
-def boundary_allowance(model64, route: str, entry: dict, side: str) -> int:
+def boundary_allowance(model64, route: str, entry: dict, side: str,
+                       ctx, twins=None):
     """Candidates of one query whose float64 score lies at the tie
     boundary |s - t| = atol + rtol*|t| within the rounding of two float32
     computations of s and t, in the score space the evaluation ranks in
@@ -2276,13 +2346,23 @@ def boundary_allowance(model64, route: str, entry: dict, side: str) -> int:
     host, and moves a final rank by at most one. The rounding bound of a
     float32 sum of D terms is D * 2^-24 times the sum of their absolute
     values: |q| . |c| for a dot form, |s| for the distances of the
-    generic route (sums of non-negative terms)."""
-    from kge_tpu_torch.models import Ctx
+    generic route (sums of non-negative terms). ``ctx`` is one eval Ctx
+    for all of a model's queries (an R-GNN encoder runs once in it).
 
-    t = lambda i: torch.tensor([int(entry[i])])
-    ctx = Ctx(state=model64.model_state)
+    ``twins`` ((model, ctx) on the card and on the host, float32): an
+    R-GNN encoder sums a hub's thousands of messages in the order the
+    card's atomics take, so its scores differ by more than the last
+    product's rounding; the bound then adds twice the largest card vs
+    host difference of the query's scores, which is returned too."""
+    def scores_of(model, c):
+        t = lambda i: torch.tensor([int(entry[i])], device=model.device)
+        if side == "o":
+            return model.score_sp(t("s"), t("p"), ctx=c)[0]
+        return model.score_po(t("p"), t("o"), ctx=c)[0]
+
     with torch.no_grad():
         if route == "fused":
+            t = lambda i: torch.tensor([int(entry[i])])
             q_sp, q_po = model64.dot_queries(t("s"), t("p"), t("o"), ctx)
             cand_sp, cand_po = model64.dot_candidates_all(ctx)
             q, cand = (q_sp, cand_sp) if side == "o" else (q_po, cand_po)
@@ -2290,31 +2370,36 @@ def boundary_allowance(model64, route: str, entry: dict, side: str) -> int:
             magnitude = (q.abs() @ cand.abs().T)[0]
             depth = q.shape[1]
         else:
-            scores = (model64.score_sp(t("s"), t("p"), ctx=ctx)[0]
-                      if side == "o"
-                      else model64.score_po(t("p"), t("o"), ctx=ctx)[0])
+            scores = scores_of(model64, ctx)
             magnitude = scores.abs()
             depth = model64.get_s_embedder().dim
+        spread = 0.0
+        if twins is not None:
+            card, host = (scores_of(m, c).double().cpu() for m, c in twins)
+            spread = float((card - host).abs().max())
     i = int(entry[side])
     true = scores[i]
-    rounding = depth * 2.0 ** -24 * (magnitude + magnitude[i])
+    rounding = depth * 2.0 ** -24 * (magnitude + magnitude[i]) + 2 * spread
     tol = ATOL + RTOL * true.abs()
     near = (((scores - true).abs() - tol).abs() <= rounding).sum()
-    return int(near)
+    return int(near), spread
 
 
 def compare_counts(name: str, run: str, route: str, card: list,
-                   host: list) -> dict:
+                   host: list, checkpoint="checkpoint_00001.pt",
+                   measured_spread=False) -> dict:
     """Card vs host rank and tie counts of every query and ranking:
     equal, or apart by at most the query's pairs at the tie boundary
     (``boundary_allowance``, in float64 on the host from the evaluated
-    checkpoint)."""
-    from kge_tpu_torch.models import KgeModel
+    ``checkpoint``; with ``measured_spread``, widened by the card vs host
+    difference of the query's float32 scores)."""
+    from kge_tpu_torch.models import Ctx, KgeModel
     from kge_tpu_torch.utils.io import load_checkpoint
 
     if len(card) != len(host) or not card:
         fail(f"{name}: {len(card)} card and {len(host)} host batches")
     model64, queries, differing, allowed = None, 0, 0, 0
+    largest_spread = 0.0
     for (triples, a), (triples_host, b) in zip(card, host):
         if not np.array_equal(triples, triples_host):
             fail(f"{name}: the card and the host ranked other triples")
@@ -2322,77 +2407,84 @@ def compare_counts(name: str, run: str, route: str, card: list,
         diff = np.abs(a - b)                      # [rankings, 4, B]
         for column in np.flatnonzero(diff.max(axis=(0, 1))):
             if model64 is None:
-                checkpoint = load_checkpoint(
-                    os.path.join(run, "checkpoint_00001.pt"))
+                stored = load_checkpoint(os.path.join(run, checkpoint))
                 model64 = KgeModel.create_from(
-                    checkpoint, device=torch.device("cpu")).double()
+                    stored, device=torch.device("cpu")).double()
                 model64.model_state = {
                     k: {s: v.double() for s, v in st.items()}
                     for k, st in model64.model_state.items()}
+                ctx = Ctx(state=model64.model_state)
+                twins = None
+                if measured_spread:
+                    twins = [(m, Ctx(state=m.model_state)) for m in (
+                        KgeModel.create_from(stored, device=torch.device(d))
+                        for d in ("cuda:0", "cpu"))]
             entry = dict(zip("spo", triples[column]))
             for side, rows in (("o", slice(0, 2)), ("s", slice(2, 4))):
                 worst = int(diff[:, rows, column].max())
                 if not worst:
                     continue
                 differing += 1
-                near = boundary_allowance(model64, route, entry, side)
+                near, spread = boundary_allowance(model64, route, entry,
+                                                  side, ctx, twins)
+                largest_spread = max(largest_spread, spread)
                 allowed += near
                 if worst > near:
                     query = tuple(map(int, triples[column]))
                     fail(f"{name}: {side} side of {query}: "
                          f"counts card {a[:, rows, column].tolist()} vs host "
                          f"{b[:, rows, column].tolist()}, {near} pairs at "
-                         "the tie boundary")
+                         f"the tie boundary (score spread {spread})")
     return dict(queries=queries, rankings=len(card[0][1]),
-                differing_queries=differing, boundary_pairs_in_them=allowed)
+                differing_queries=differing, boundary_pairs_in_them=allowed,
+                largest_score_spread=largest_spread)
 
 
-def scorer_run(name: str, spec: dict, kernels, seed, scratch,
-               dataset_folder) -> dict:
-    """One scorer: SCORER_STEPS steps of its strategy on the card and, from
-    the same initial checkpoint, on the host (batch losses compared); then
-    the card-trained checkpoint evaluated on the test subset on the card
-    and on the host (metrics and ranks compared); the kernels each run
-    launched, against the route it must take."""
+def card_vs_host_run(label: str, config_file: str, kernels, scratch, *,
+                     epochs: int, steps: int, train_want: dict,
+                     eval_want: dict, route: str, step_rtol: float,
+                     measured_spread: bool = False) -> dict:
+    """``start`` of ``config_file`` on the card for ``epochs`` epochs of
+    at most ``steps`` batches each and, from the same initial checkpoint,
+    on the host: ``steps`` batch losses in all, the first within 1e-5
+    relative (identical weights), each within ``step_rtol`` (later steps
+    see the sign trap of Adagrad's and Adam's first updates, PERF.md
+    section 2); then the card-trained checkpoint evaluated on the
+    dataset's test split on the card and on the host (metrics within
+    1e-4, ranks by ``compare_counts`` on ``route``, ``measured_spread``
+    passed on); the kernels each run launched against ``train_want`` and
+    ``eval_want``."""
     from kge_tpu_torch import cli
 
-    config_file = os.path.join(scratch, f"scorer-{name}.yaml")
-    write_scorer_config(config_file, dataset_folder, seed, spec)
-    run = os.path.join(scratch, f"scorer-{name}")
+    run = os.path.join(scratch, label.replace(" ", "-"))
     reset_counts(kernels)
     t0 = time.perf_counter()
-    with first_batches(SCORER_STEPS):
+    with first_batches(steps):
         cli.main(["start", config_file, "--folder", run])
     torch.cuda.synchronize()
     train_seconds = time.perf_counter() - t0
     train_counts = counts(kernels)
-    k1 = 2 * SCORER_STEPS if spec["k1"] else 0
-    k3 = SCORER_STEPS if spec["k3"] else 0
-    expect_counts(f"{name}'s training", train_counts, dict(
-        rank_counts=0, shared_ce_loss=k1, adagrad_row_update=k3,
-        sgd_row_update=0))
+    expect_counts(f"{label}'s training", train_counts, train_want)
     card_losses = batch_losses(run)
 
-    host_folder = os.path.join(scratch, f"scorer-{name}-host")
+    host_folder = run + "-host"
     copy_run(run, host_folder, "checkpoint_00000.pt")
     t0 = time.perf_counter()
-    with first_batches(SCORER_STEPS):
-        cli.main(["resume", host_folder, "--train.max_epochs", "1",
+    with first_batches(steps):
+        cli.main(["resume", host_folder, "--train.max_epochs", str(epochs),
                   "--job.device", "cpu"])
     host_train_seconds = time.perf_counter() - t0
     host_losses = batch_losses(host_folder)
     shutil.rmtree(host_folder)
-    if (len(card_losses) != SCORER_STEPS
-            or len(host_losses) != SCORER_STEPS
+    n = steps if epochs == 1 else epochs
+    if (len(card_losses) != n or len(host_losses) != n
             or not all(map(math.isfinite, card_losses))):
-        fail(f"{name}: losses card {card_losses} host {host_losses}")
+        fail(f"{label}: losses card {card_losses} host {host_losses}")
     first = relative(card_losses[0], host_losses[0])
     worst = max(relative(a, b) for a, b in zip(card_losses, host_losses))
-    # the first step sees identical weights; later ones the sign trap of
-    # Adagrad's and Adam's first updates (PERF.md section 2)
-    if first > 1e-5 or worst > 1e-3:
-        fail(f"{name}: card vs host batch losses, first {first}, largest "
-             f"{worst}")
+    if first > 1e-5 or worst > step_rtol:
+        fail(f"{label}: card vs host batch losses, first {first}, largest "
+             f"{worst}: card {card_losses} host {host_losses}")
 
     reset_counts(kernels)
     card_counts, host_counts = [], []
@@ -2406,10 +2498,7 @@ def scorer_run(name: str, spec: dict, kernels, seed, scratch,
     with recorded_counts(host_counts):
         host = cli.main(["test", run, "--job.device", "cpu"])
     host_eval_seconds = time.perf_counter() - t0
-    fused = spec["route"] == "fused"
-    expect_counts(f"{name}'s evaluation", eval_counts, dict(
-        rank_counts=2 * math.ceil(SCORER_TEST / EVAL_BATCH) if fused else 0,
-        shared_ce_loss=0, adagrad_row_update=0, sgd_row_update=0))
+    expect_counts(f"{label}'s evaluation", eval_counts, eval_want)
     metrics = {k: v for k, v in card.items()
                if k.startswith(("mean_", "hits_"))}
     # relative to the value where it exceeds 1 (a mean rank moves by
@@ -2417,22 +2506,41 @@ def scorer_run(name: str, spec: dict, kernels, seed, scratch,
     worst_metric = max(abs(v - host[k]) / max(1.0, abs(host[k]))
                        for k, v in metrics.items())
     if not all(map(math.isfinite, metrics.values())) or worst_metric > 1e-4:
-        fail(f"{name}: eval metrics card {metrics} vs host {host}")
-    ranks = compare_counts(name, run, spec["route"], card_counts,
-                           host_counts)
+        fail(f"{label}: eval metrics card {metrics} vs host {host}")
+    ranks = compare_counts(label, run, route, card_counts, host_counts,
+                           checkpoint=f"checkpoint_{epochs:05d}.pt",
+                           measured_spread=measured_spread)
     shutil.rmtree(run)
-    out = dict(route=spec["route"], train_launches=train_counts,
-               eval_launches=eval_counts,
+    out = dict(route=route, train_launches=train_counts,
+               eval_launches=eval_counts, card_losses=card_losses,
                first_batch_relative_difference=first,
                largest_batch_relative_difference=worst,
                mrr_filtered=metrics["mean_reciprocal_rank_filtered"],
+               host_mrr_filtered=host["mean_reciprocal_rank_filtered"],
                largest_metric_difference=worst_metric, ranks=ranks,
                card_train_seconds=train_seconds,
                host_train_seconds=host_train_seconds,
                card_eval_seconds=eval_seconds,
                host_eval_seconds=host_eval_seconds)
-    print(f"scorer {name} card vs host: " + json.dumps(out), flush=True)
+    print(f"{label} card vs host: " + json.dumps(out), flush=True)
     return out
+
+
+def scorer_run(name: str, spec: dict, kernels, seed, scratch,
+               dataset_folder) -> dict:
+    """One scorer: SCORER_STEPS steps of its strategy and an evaluation,
+    card vs host, its route asserted by the kernels each run launched."""
+    config_file = os.path.join(scratch, f"scorer-{name}.yaml")
+    write_scorer_config(config_file, dataset_folder, seed, spec)
+    fused = spec["route"] == "fused"
+    return card_vs_host_run(
+        f"scorer {name}", config_file, kernels, scratch, epochs=1,
+        steps=SCORER_STEPS, train_want=dict(
+            NO_KERNELS, shared_ce_loss=2 * SCORER_STEPS if spec["k1"] else 0,
+            adagrad_row_update=SCORER_STEPS if spec["k3"] else 0),
+        eval_want=dict(NO_KERNELS, rank_counts=2 * math.ceil(
+            SCORER_TEST / EVAL_BATCH) if fused else 0),
+        route=spec["route"], step_rtol=1e-3)
 
 
 def scorers_phase(kernels, seed, scratch, dataset_folder) -> dict:
@@ -2445,9 +2553,118 @@ def scorers_phase(kernels, seed, scratch, dataset_folder) -> dict:
             for name, spec in SCORERS.items()}
 
 
+# ----------------------------------------------------------------- R-GNN
+
+def write_recipe_config(path: str, recipe: str, dataset_folder: str,
+                        seed: int, options: dict):
+    """The recipe's config as it is, over ``dataset_folder``, seeded from
+    ``seed``, with ``options`` (dotted keys) on top."""
+    with open(os.path.join(REPO, recipe)) as f:
+        config = yaml.safe_load(f)
+    config.pop("dataset.name", None)
+    config.update({"dataset": {"name": dataset_folder},
+                   "random_seed": {"default": seed},
+                   "console": {"quiet": True}, **options})
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+
+
+def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The slice's main path: ``start`` of CompGCN's FB15k-237 recipe as it
+    is (one message-passing layer over the whole graph, ccorr, reciprocal
+    ConvE, KvsAll with bce, batch 128, Adam lr 0.001) on the FB15k-237-size
+    graph, 1 epoch and a validation, ``resume`` for 1 more; no kernel
+    launched (the generic eval route, dense training); the first
+    COMPGCN_HOST_BATCHES batches of epoch 1 card vs host at dropout 0; a
+    window of PROFILE_STEPS steps profiled."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, "compgcn.yaml")
+    write_recipe_config(config_file, COMPGCN_RECIPE, dataset_folder, seed, {
+        "train.max_epochs": 1, "valid.every": 1,
+        "valid.metric": "mean_reciprocal_rank_filtered",
+        "eval.batch_size": VALID_BATCH})
+    run = os.path.join(scratch, "compgcn-run")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    start_counts = counts(kernels)
+    epochs = check_start("compgcn", run, start_counts, NO_KERNELS, 1)
+    print(f"train compgcn start seconds_cli {seconds}", flush=True)
+
+    reset_counts(kernels)
+    resumed = cli.main(["resume", run, "--train.max_epochs", "2"])
+    torch.cuda.synchronize()
+    resume_counts = counts(kernels)
+    valids = read_trace(run, event="eval_completed", job="eval")
+    print("train compgcn resume on the card: " + json.dumps(dict(
+        epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
+        epoch_seconds=resumed["epoch_time"],
+        ms_per_step=1e3 * resumed["epoch_time"] / resumed["batches"],
+        queries_per_s=resumed["size"] / resumed["epoch_time"],
+        launches=resume_counts, valid_mrr_filtered=[
+            v["mean_reciprocal_rank_filtered"] for v in valids])),
+        flush=True)
+    if resumed["epoch"] != 2 or not math.isfinite(resumed["avg_loss"]):
+        fail(f"the CompGCN resume did not reach a finite epoch 2: {resumed}")
+    if len(valids) != 2 or not all(
+            0.0 < v["mean_reciprocal_rank_filtered"] <= 1.0 for v in valids):
+        fail("CompGCN: a validation is missing or out of range")
+    expect_counts("the resumed CompGCN epoch", resume_counts, NO_KERNELS)
+
+    # a host step runs the encoder over the whole graph: the first batches
+    compared = card_vs_host("compgcn", run, scratch,
+                            flags=COMPGCN_NO_DROPOUT,
+                            batches=COMPGCN_HOST_BATCHES)
+    if compared["first_batch_relative_difference"] > 1e-5:
+        fail(f"CompGCN first batch, card vs host: {compared}")
+    # Adam's first update of an element is about lr * sign(g) (PERF.md
+    # section 2)
+    if compared["avg_loss_relative_difference"] > 1e-3:
+        fail(f"CompGCN first {COMPGCN_HOST_BATCHES} batches, card vs host: "
+             f"{compared}")
+    profiled_window("compgcn", run, scratch, 3)
+    return dict(start=start_counts, resume=resume_counts,
+                losses=[e["avg_loss"] for e in epochs] + [
+                    resumed["avg_loss"]],
+                queries_per_s=[e["size"] / e["epoch_time"] for e in epochs]
+                + [resumed["size"] / resumed["epoch_time"]])
+
+
+def rgnn_run(name: str, spec: dict, kernels, seed, scratch,
+             dataset_folder) -> dict:
+    """One encoder's recipe at its widths, dropout 0: RGNN_STEPS steps and
+    an evaluation through the generic route, card vs host, no kernel
+    launched in either. Adam's first updates at the recipes' learning
+    rates put W-GCN's third step 1.5e-3 apart (a ConvE batch has been
+    3.6e-3 apart), so a step holds to 1e-2; the ranks' tie-boundary
+    allowance takes the encoder's card vs host score spread in."""
+    config_file = os.path.join(scratch, f"rgnn-{name}.yaml")
+    write_recipe_config(config_file, spec["recipe"], dataset_folder, seed, {
+        "train.max_epochs": spec["epochs"], "train.trace_level": "batch",
+        "valid.every": 0, "valid.metric": "mean_reciprocal_rank_filtered",
+        "eval.batch_size": RGNN_EVAL_BATCH, **spec["options"]})
+    return card_vs_host_run(
+        f"rgnn {name}", config_file, kernels, scratch, epochs=spec["epochs"],
+        steps=RGNN_STEPS, train_want=NO_KERNELS, eval_want=NO_KERNELS,
+        route="generic", step_rtol=1e-2, measured_spread=True)
+
+
+def rgnn_encoders_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """R-GCN, W-GCN and RAGAT by their FB15k-237 recipes and CompGCN with
+    TransE (RGNN_ENCODERS) on the FB15k-237-size graph, each trained and
+    evaluated on the first RGNN_TEST test triples card vs host."""
+    subset = os.path.join(scratch, "fb15k237-rgnn-test-subset")
+    write_test_subset(dataset_folder, subset, RGNN_TEST)
+    return {name: rgnn_run(name, spec, kernels, seed, scratch, subset)
+            for name, spec in RGNN_ENCODERS.items()}
+
+
 #: the phases in the order they run
 PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
-          "conve", "scorers", "train", "sgd", "kvsall", "1vsall", "triple",
+          "compgcn", "rgnn_encoders", "conve", "scorers", "train", "sgd", "kvsall", "1vsall", "triple",
           "wikidata5m")
 
 
@@ -2528,6 +2745,9 @@ def main():
             write_dataset(graph, args.seed)
         else:
             graph = ev["dataset_folder"]
+        run("compgcn", compgcn_phase, kernels, args.seed, scratch, graph)
+        run("rgnn_encoders", rgnn_encoders_phase, kernels, args.seed,
+            scratch, graph)
         run("conve", conve_phase, kernels, args.seed, scratch, graph)
         run("scorers", scorers_phase, kernels, args.seed, scratch, graph)
         tr = run("train", train_phase, kernels, args.seed, scratch, graph)
@@ -2557,7 +2777,12 @@ def main():
 
     # each kernel's launches in every run that drives a path, the counts
     # set to 0 before the run and read after it
+    compgcn = results["compgcn"]
     by_phase = {
+        "compgcn": compgcn["start"], "compgcn_resume": compgcn["resume"],
+        **{f"rgnn_{name}_{part}": out[f"{part}_launches"]
+           for name, out in results["rgnn_encoders"].items()
+           for part in ("train", "eval")},
         "conve": conve["start"], "conve_resume": conve["resume"],
         **{f"scorer_{name}_{part}": out[f"{part}_launches"]
            for name, out in results["scorers"].items()

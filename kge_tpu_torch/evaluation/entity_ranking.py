@@ -173,22 +173,20 @@ class EntityRankingJob(EvaluationJob):
         return (self.implementation == "auto"
                 and self.model.supports_dot_ranking())
 
-    def _true_scores(self, s, p, o):
+    def _true_scores(self, s, p, o, ctx):
         """True scores through the sp_/_po matrix path (the diagonal of
         a [B, B] score block), as ``kge_tpu`` computes them."""
-        ctx = self.model.default_ctx()
         o_true = torch.diagonal(self.model.score_sp(s, p, o_subset=o, ctx=ctx))
         s_true = torch.diagonal(self.model.score_po(p, o, s_subset=s, ctx=ctx))
         return o_true, s_true
 
-    def _spo_scores(self, s, p, o):
+    def _spo_scores(self, s, p, o, ctx):
         """Device half of the spo-vs-sp_ consistency check: the
         triple-wise scores, compared after the fetch; None for a model
         that cannot score spo both ways (the check is skipped, as
         ``kge_tpu``'s ``_spo_consistency_scores`` skips it)."""
         if self._spo_supported is False:
             return None
-        ctx = self.model.default_ctx()
         try:
             scores = (self.model.score_spo(s, p, o, direction="o", ctx=ctx),
                       self.model.score_spo(s, p, o, direction="s", ctx=ctx))
@@ -220,8 +218,8 @@ class EntityRankingJob(EvaluationJob):
     # -------------------------------------------------------------- fused path
 
     def _fused_counts(self, s, p, o, coords_sp, coords_po, o_true, s_true,
-                      num_rankings: int,
-                      cand_valid: torch.Tensor) -> torch.Tensor:
+                      num_rankings: int, cand_valid: torch.Tensor,
+                      ctx) -> torch.Tensor:
         """[num_rankings, 4, B] int32 (o_rank, o_tie, s_rank, s_tie) per
         ranking variant (0 = raw, then filtered). Dot-form queries; one
         rank-count launch per side over the whole candidate table; and
@@ -233,7 +231,6 @@ class EntityRankingJob(EvaluationJob):
         model = self.model
         atol, rtol = self.tie_atol, self.tie_rtol
         num_entities = self.dataset.num_entities()
-        ctx = model.default_ctx()
         q_sp, q_po = model.dot_queries(s, p, o, ctx=ctx)
         if model.dot_score_space() == "monotone":
             # the dot form is a monotone transform of the score (the L2
@@ -292,7 +289,7 @@ class EntityRankingJob(EvaluationJob):
     # ------------------------------------------------------------ generic path
 
     def _generic_counts(self, s, p, o, coords_sp, coords_po, o_true, s_true,
-                        num_rankings: int) -> torch.Tensor:
+                        num_rankings: int, ctx) -> torch.Tensor:
         """[num_rankings, 4, B] int32, as ``_fused_counts``, from
         ``score_sp_po`` over chunks of ``entity_ranking.chunk_size``
         entities (``kge_tpu``'s ``_build_chunk_fn``): columns past the
@@ -306,7 +303,6 @@ class EntityRankingJob(EvaluationJob):
         chunk_size = self.chunk_size if self.chunk_size > 0 else num_entities
         device = s.device
         every = torch.ones((), dtype=torch.bool, device=device)
-        ctx = model.default_ctx()
 
         def counts(sp, po):
             r, t = greater_tie_counts(sp, o_true[:, None], every, dim=1,
@@ -437,9 +433,12 @@ class EntityRankingJob(EvaluationJob):
                 batch = self.triples[start : start + self.batch_size]
                 B = len(batch)
                 s, p, o = columns[:, start : start + B]
+                # one Ctx a batch: an R-GNN model's encoder runs once for
+                # all of the batch's score calls (its memo, Ctx.cache)
+                ctx = self.model.default_ctx()
                 with record_function("entity_ranking.true_scores"):
-                    o_true, s_true = self._true_scores(s, p, o)
-                    spo_pair = self._spo_scores(s, p, o)
+                    o_true, s_true = self._true_scores(s, p, o, ctx)
+                    spo_pair = self._spo_scores(s, p, o, ctx)
 
                 with record_function("entity_ranking.collect_coords"):
                     # label coordinates per filtered ranking (deduped per
@@ -460,14 +459,14 @@ class EntityRankingJob(EvaluationJob):
                         totals = self._fused_counts(
                             s, p, o, self._upload(coords_sp),
                             self._upload(coords_po), o_true, s_true,
-                            len(rankings), cand_valid,
+                            len(rankings), cand_valid, ctx,
                         )
                 else:
                     with record_function("entity_ranking.generic_counts"):
                         totals = self._generic_counts(
                             s, p, o, self._upload(coords_sp).long(),
                             self._upload(coords_po).long(), o_true, s_true,
-                            len(rankings),
+                            len(rankings), ctx,
                         )
                 checked = ([] if spo_pair is None else list(spo_pair))
                 pending.append(

@@ -246,6 +246,35 @@ def index_frequency_percentiles(dataset) -> Dict[str, Dict[str, set]]:
     return dataset._indexes["frequency_percentiles"]
 
 
+def index_edge_index(dataset, inverse: bool = True) -> np.ndarray:
+    """[2, E(*2)] array of (subject, object) edges, plus reversed copies.
+
+    Inverse edges double the edge list; their relation ids are offset by
+    num_relations in ``edge_type`` (reference: kge/indexing.py:387-421).
+    """
+    if "edge_index" not in dataset._indexes:
+        train = dataset.split("train")
+        fwd = train[:, [S, O]].T
+        if inverse:
+            edge_index = np.concatenate([fwd, fwd[::-1]], axis=1)
+        else:
+            edge_index = fwd
+        dataset._indexes["edge_index"] = np.ascontiguousarray(
+            edge_index.astype(np.int32)
+        )
+    return dataset._indexes["edge_index"]
+
+
+def index_edge_type(dataset, inverse: bool = True) -> np.ndarray:
+    if "edge_type" not in dataset._indexes:
+        train = dataset.split("train")
+        etype = train[:, P].astype(np.int32)
+        if inverse:
+            etype = np.concatenate([etype, etype + dataset.num_relations()])
+        dataset._indexes["edge_type"] = etype
+    return dataset._indexes["edge_type"]
+
+
 class IndexWrapper:
     """Named, pickle-friendly thunk around an index function."""
 
@@ -279,6 +308,8 @@ def create_default_index_functions(dataset):
     dataset.index_functions["relation_types"] = index_relation_types
     dataset.index_functions["relations_per_type"] = index_relations_per_type
     dataset.index_functions["frequency_percentiles"] = index_frequency_percentiles
+    dataset.index_functions["edge_index"] = IndexWrapper(index_edge_index, inverse=True)
+    dataset.index_functions["edge_type"] = IndexWrapper(index_edge_type, inverse=True)
     for obj in ["entity", "relation"]:
         dataset.index_functions[f"{obj}_id_to_index"] = IndexWrapper(
             _invert_ids, obj=obj

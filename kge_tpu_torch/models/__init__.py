@@ -34,3 +34,11 @@ from kge_tpu_torch.models.embedder import (
     ProjectionEmbedder,
     Tucker3RelationEmbedder,
 )
+from kge_tpu_torch.models.rgnn import (
+    CompGCN,
+    KgeRgnnModel,
+    RAGAT,
+    RGCN,
+    RgnnEncoder,
+    WGCN,
+)

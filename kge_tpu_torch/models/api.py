@@ -51,7 +51,12 @@ class Ctx:
     (``"entity_embedder"``, ``"relation_embedder"``): a row-sparse training
     step passes the rows it gathered, and indexes that point into them
     (the counterpart of ``kge_tpu``'s loss over a params tree whose
-    ``weights`` are the gathered rows)."""
+    ``weights`` are the gathered rows).
+
+    ``cache`` is a memo for the life of the Ctx (one training step or
+    subbatch, one evaluation batch): an R-GNN encoder keeps its output
+    there, so every score call of the step reads one encoder forward and
+    autograd flows through that one graph."""
 
     def __init__(self, train: bool = False,
                  generator: Optional[torch.Generator] = None,
@@ -62,6 +67,7 @@ class Ctx:
         self.state = state if state is not None else {}
         self.updates: Dict[str, Any] = {}
         self.tables = dict(tables or {})
+        self.cache: Dict[str, Any] = {}
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """``kge_tpu``'s dropout: ``where(bernoulli(keep), x / keep, 0)``

@@ -15,8 +15,8 @@ positive in column 0, the reference layout) and fed to the loss with
   the flattened sample of the subbatch and gather each row's block.
 
 Graph sampling (``negative_sampling.graph_sampling``) draws the epoch's
-triples from the epoch's generator (``train/graph_util.py``); no model of
-the port takes the subgraph itself yet.
+triples from the epoch's generator (``train/graph_util.py``); an R-GNN
+model's encoder takes the subgraph as its graph (``set_graph``).
 
 With shared negatives and the ``kl`` loss, the slots s and o can take
 the fused loss instead (``tpu.fused_negsamp_loss``): the scores, the
@@ -98,8 +98,7 @@ class TrainingJobNegativeSampling(TrainingJob):
         their optimizer state. ``kge_tpu``'s rules: ``auto`` turns it on
         where it gives the dense numbers and the entity table is at least
         32 times the rows a batch touches; ``always`` raises where it does
-        not apply. (``kge_tpu``'s rule for graph models has no
-        counterpart here: the port has none.)"""
+        not apply (an R-GNN encoder reads every row of both tables)."""
         config = self.config
         # canonical values are YAML-safe (unquoted on/off parse as YAML
         # booleans); accept legacy aliases
@@ -129,6 +128,8 @@ class TrainingJobNegativeSampling(TrainingJob):
             reasons.append("implementation 'all' scores every entity")
         if isinstance(m, ReciprocalRelationsModel):
             reasons.append("reciprocal model rewrites raw relation indices")
+        if hasattr(m, "set_graph"):
+            reasons.append("GNN encoder runs over the full graph")
         if type(m).penalties is not KgeModel.penalties:
             reasons.append(f"{type(m).__name__} defines whole-table penalties")
         if type(m).normalize_params is not KgeModel.normalize_params:
@@ -258,11 +259,15 @@ class TrainingJobNegativeSampling(TrainingJob):
 
     def _sample_graph(self, rng: np.random.Generator) -> np.ndarray:
         """The epoch's subgraph, drawn from the epoch's generator (so a
-        resumed run draws the uninterrupted run's)."""
+        resumed run draws the uninterrupted run's); an R-GNN encoder's
+        edge buffers become it."""
         train = self.dataset.split(self.train_split)
         sample = (sample_uniform if self.graph_sampling == "uniform"
                   else sample_edge_neighbourhood)
-        return sample(train, self.graph_sampling_size, rng)
+        triples = sample(train, self.graph_sampling_size, rng)
+        if hasattr(self.model, "set_graph"):
+            self.model.set_graph(triples)
+        return triples
 
     def _resolve_fused_loss_slots(self):
         """Slots whose loss goes through the fused kernel

@@ -280,8 +280,13 @@ runs = {
     # reciprocal ConvE by KvsAll with Adam and its default dropout
     "conve": ["--conve.entity_embedder.dim", "32",
               "--conve.relation_embedder.dim", "32"],
+    # an R-GNN encoder (CompGCN, batch-norm state) with a TransE decoder
+    "compgcn": ["--compgcn.entity_embedder.dim", "16",
+                "--compgcn.relation_embedder.dim", "16",
+                "--compgcn.encoder.num_layers", "1"],
 }
-examples = {"conve": "examples/toy-conve-train.yaml"}
+examples = {"conve": "examples/toy-conve-train.yaml",
+            "compgcn": "examples/toy-transe-compgcn-train.yaml"}
 epochs = {}
 for name, options in runs.items():
     run = folder + "/" + name
@@ -297,10 +302,11 @@ print(json.dumps(dict(loaded=loaded, epochs=epochs)))
 
 def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
     """start and resume of a KvsAll run with bce and Adam, a 1vsAll run,
-    a run of the default sampler (``triple`` scoring) and reciprocal
-    ConvE (examples/toy-conve-train.yaml: KvsAll, Adam, dropout,
-    batch-norm state), in a subprocess that loads no JAX module; kge_tpu
-    resumes each port checkpoint."""
+    a run of the default sampler (``triple`` scoring), reciprocal ConvE
+    (examples/toy-conve-train.yaml: KvsAll, Adam, dropout, batch-norm
+    state) and CompGCN (examples/toy-transe-compgcn-train.yaml: an R-GNN
+    encoder with its batch-norm state), in a subprocess that loads no JAX
+    module; kge_tpu resumes each port checkpoint."""
     folder = str(tmp_path / "runs")
     r = _run(["-c", STRATEGY_SCRIPT, folder],
              env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -310,10 +316,11 @@ def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
     assert result["epochs"] == {"kvsall-adam": [1, 2, "KvsAll"],
                                 "1vsall": [1, 2, "1vsAll"],
                                 "triple": [1, 2, "negative_sampling"],
-                                "conve": [1, 2, "KvsAll"]}
+                                "conve": [1, 2, "KvsAll"],
+                                "compgcn": [1, 2, "negative_sampling"]}
     with open(os.path.join(folder, "triple", "kge.log")) as f:
         assert "Preparing negative sampling with 'triple' scoring" in f.read()
-    for name in ("kvsall-adam", "1vsall", "triple", "conve"):
+    for name in ("kvsall-adam", "1vsall", "triple", "conve", "compgcn"):
         checkpoint = jax_load_checkpoint(
             os.path.join(folder, name, "checkpoint_00002.pt"))
         if name == "conve":
@@ -321,6 +328,9 @@ def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
             state = checkpoint["model"]["state"]
             assert set(state) == {"bn1", "bn2"}
             assert not np.allclose(state["bn2"]["var"], 1.0)
+        if name == "compgcn":
+            state = checkpoint["model"]["state"]["compgcn.encoder.layer0_bn"]
+            assert not np.allclose(state["var"], 1.0)
         checkpoint.pop("folder")
         config = JaxConfig.create_from(checkpoint)
         config.set("train.max_epochs", 3)
