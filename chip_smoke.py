@@ -175,11 +175,42 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    batch within 1e-5, each within 1e-2: Adam's sign trap), then an
    evaluation of the first
    2,000 test triples card vs host on the generic route (metrics within
-   1e-4, counts as in phase 16); K1, K2 and K3 never launched.
+   1e-4, counts as in phase 16); K1, K2 and K3 never launched;
+19. bf16 phase, the main path of this slice (run after the SGD phase):
+   the train phase's ``start`` with ``--tpu.compute_dtype bfloat16``:
+   ComplEx dim 128 with examples/wikidata5m-complex-train.yaml's
+   hyperparameters, 2 epochs with a validation after each; K1 reads bf16
+   operands twice a step (1,064), K2 ranks each validation in float32
+   (276), K3 never; losses finite and falling; the checkpoint's
+   parameters and Adagrad state float32; the first batch card vs host
+   (plain K1) within 1e-2; epoch 1 within 2e-2 of the float32 run's;
+   then ``valid --eval.type training_loss`` (a forward-only epoch of the
+   valid split, K1 36 times) card vs host within 1e-5; a window of 200
+   steps profiled (ms a step, triples/s, device busy share, peak memory);
+20. utils phase, in a subprocess that must load no module of JAX or of
+   the JAX package: ``package`` of the bf16 run's best checkpoint, a
+   1-epoch float32 ``start`` from it by ``lookup_embedder.pretrain``
+   (initial rows the package's bit for bit; K1 532, K2 138), ``dump
+   checkpoint`` of the package and of both runs, ``dump trace`` of both
+   runs;
+21. pair ranking phase: ``test --eval.type entity_pair_ranking`` of the
+   train phase's best float32 ComplEx checkpoint on the first 20 test
+   triples (each against all 14,541^2 pairs under its relation), card
+   and host: raw and filtered counts equal but for pairs at the tie
+   boundary within the float32 rounding of their scores (found in
+   float64 on the card), metrics within 1e-4; prints queries/s;
+22. search phase: a ``grid_search`` (Adagrad lr {0.1, 0.2} x
+   negative_sampling.num_samples.o {64, 128}) and an ``ax_search`` on the
+   native backend (4 trials: 2 scrambled-Sobol, then the GP-EI phase),
+   each trial 1 epoch of the train phase's config on ``cuda:0``
+   (``search.device_pool``) validated through K2 (K1 532 and K2 138 a
+   trial); ``resume`` of the finished ``ax_search`` launches nothing and
+   finds the same best trial; prints the seconds per trial.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
-every run that drives a path, ``launches_by_phase``; K2's ``launches``
-are the ConvE main path's, its ``widths`` phase 14's shapes) and, last,
+every run that drives a path, ``launches_by_phase``; K1's and K2's
+``launches`` are the bf16 main path's, K2's ``widths`` phase 14's
+shapes) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero when no CUDA device is
 present, the package is missing, or a module of JAX or of ``kge_tpu``
 was loaded.
@@ -870,10 +901,43 @@ def k1_phase(nl, seed, device) -> dict:
           f"{plain_ms} library_ms (matmul q @ cand.T) {library_ms} bound_ms "
           f"{bound_ms} ({bound_by}; {flops / 1e6} MFLOP, {moved / 1e6} MB); "
           "loss bit-identical over 10 runs", flush=True)
+    bf16 = check_k1_bf16(nl, main)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 kernel_us=prof["kernel_us"], host_us=prof["host_us"],
-                library_kernel_us=prof["library_kernel_us"])
+                library_kernel_us=prof["library_kernel_us"], **bf16)
+
+
+def check_k1_bf16(nl, inputs) -> dict:
+    """K1's wrapper on the bf16 operands of ``tpu.compute_dtype:
+    bfloat16`` (q, cand, pos rounded to bf16) at the training shape: the
+    loss within rtol 1e-5 of the plain version on the same values in
+    float32, the gradients (kernel forward, torch backward) bf16 and
+    within one bf16 rounding of autograd through the plain version; the
+    time of a forward call with its casts, and its device time by
+    kernel."""
+    q, cand, pos, counts_, w = inputs
+    leaves = [x.to(torch.bfloat16).requires_grad_() for x in (q, cand, pos)]
+    loss = nl.shared_ce_loss(*leaves, counts_, w)
+    loss.backward()
+    exact = [x.detach().float().requires_grad_() for x in leaves]
+    want, _ = nl.shared_ce_loss_reference(*exact, counts_, w)
+    want.backward()
+    assert_close("shared_ce_loss bf16 operands loss", loss.detach(),
+                 want.detach(), 1e-5, 0.0)
+    for name, got, ref in zip(("q", "cand", "pos"), leaves, exact):
+        if got.grad.dtype != torch.bfloat16:
+            fail(f"shared_ce_loss bf16: d{name} came back {got.grad.dtype}")
+        assert_close(f"shared_ce_loss bf16 operands d{name}",
+                     got.grad.float(), ref.grad, 2 ** -7, 1e-6)
+    operands = [x.detach() for x in leaves]
+    call = lambda: nl.shared_ce_loss(*operands, counts_, w)
+    ms = cuda_ms(call, reps=50)
+    prof = call_profile("shared_ce_loss bf16 operands", call, None)
+    print(f"shared_ce_loss bf16 operands: ms {ms} (the casts to float32 "
+          "and the kernel)", flush=True)
+    return dict(bf16_ms=ms, bf16_kernel_us=prof["kernel_us"],
+                bf16_host_us=prof["host_us"])
 
 
 # ----------------------------------------------------------------- K3
@@ -932,10 +996,14 @@ def device_us_by_name(fn, reps: int) -> dict:
     # of 50 (seen on a cuBLAS GEMM in three windows running). A kernel's
     # launches a call are its count over the calls, rounded; a count
     # further than a tenth of the calls from that whole number, or an
-    # empty window, profiles the window again, and a third such window
-    # fails the run rather than under-count. The time of a call is the
-    # mean time of a recorded launch times the launches a call.
-    for attempt in range(3):
+    # empty window, profiles the window again (after a pause: a K3
+    # window lost its records three times running, proof run of PR 9),
+    # and a fifth such window fails the run rather than under-count. The
+    # time of a call is the mean time of a recorded launch times the
+    # launches a call.
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -957,7 +1025,7 @@ def device_us_by_name(fn, reps: int) -> dict:
         print(f"profiler lost records of {lost} (attempt {attempt + 1}): "
               f"{[out.get(name, (0, 0))[1] for name in lost]} over {reps} "
               "calls", flush=True)
-    fail(f"torch.profiler lost device records in 3 windows of {reps} calls")
+    fail(f"torch.profiler lost device records in 5 windows of {reps} calls")
 
 
 def kernel_device_ms(fn, reps: int, name_part: str) -> float:
@@ -1431,7 +1499,9 @@ def train_phase(kernels, seed, scratch, dataset_folder) -> dict:
     # among 1.9M shift the epoch average slightly
     if compared["avg_loss_relative_difference"] > 1e-3:
         fail(f"epoch avg_loss, card vs host: {compared}")
-    return dict(k1_launches=k1, config_file=config_file, counts=launched)
+    return dict(k1_launches=k1, config_file=config_file, counts=launched,
+                first_epoch_avg_loss=losses[0],
+                best=os.path.join(run, "checkpoint_best.pt"))
 
 
 def batch_losses(folder: str) -> list:
@@ -1578,11 +1648,14 @@ def card_vs_host(label: str, run: str, scratch: str, flags=(),
     return out
 
 
-def profiled_window(label: str, run: str, scratch: str, epoch: int):
-    """The first PROFILE_STEPS KvsAll steps of epoch ``epoch`` of ``run``
-    (from its checkpoint of the epoch before), without validation, under
-    torch.profiler: ms a step, queries/s, the device's busy share and
-    peak memory."""
+def profiled_window(label: str, run: str, scratch: str, epoch: int,
+                    batch: int = KVSALL_BATCH, unit: str = "queries",
+                    flags=()):
+    """The first PROFILE_STEPS steps of epoch ``epoch`` of ``run`` (from
+    its checkpoint of the epoch before), without validation, under
+    torch.profiler: ms a step, ``unit``/s (``batch`` of them a step: a
+    KvsAll batch's queries by default), the device's busy share and peak
+    memory."""
     from kge_tpu_torch import cli
 
     folder = os.path.join(scratch, f"{label}-profiled")
@@ -1592,15 +1665,15 @@ def profiled_window(label: str, run: str, scratch: str, epoch: int):
         entry, device = profile_run(
             f"train {label}", "train.", lambda: cli.main([
                 "resume", folder, "--train.max_epochs", str(epoch),
-                "--valid.every", "0"]), epoch_only=True)
+                "--valid.every", "0", *flags]), epoch_only=True)
     device_ms = sum(ms for ms, _ in device.values())
-    print(f"train {label} profiled window: " + json.dumps(dict(
-        seconds=entry["epoch_time"], batches=entry["batches"],
-        ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
-        queries_per_s=entry["batches"] * KVSALL_BATCH / entry["epoch_time"],
-        device_busy_share=device_ms / (1e3 * entry["epoch_time"]),
-        peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
-        device_memory_before_bytes=base)), flush=True)
+    print(f"train {label} profiled window: " + json.dumps({
+        "seconds": entry["epoch_time"], "batches": entry["batches"],
+        "ms_per_step": 1e3 * entry["epoch_time"] / entry["batches"],
+        f"{unit}_per_s": entry["batches"] * batch / entry["epoch_time"],
+        "device_busy_share": device_ms / (1e3 * entry["epoch_time"]),
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        "device_memory_before_bytes": base}), flush=True)
     shutil.rmtree(folder)
 
 
@@ -2663,9 +2736,461 @@ def rgnn_encoders_phase(kernels, seed, scratch, dataset_folder) -> dict:
 
 
 #: the phases in the order they run
+# ----------------------------------------------------------------- slice 9
+
+
+BF16 = ["--tpu.compute_dtype", "bfloat16"]
+# K1 launches of a forward-only (training_loss) epoch over the valid split
+TRAINING_LOSS_LAUNCHES = 2 * math.ceil(FB15K237["splits"]["valid"]
+                                       / TRAIN_BATCH)
+# entity-pair ranking: test triples ranked against all E x E pairs
+PAIR_QUERIES = 20
+SEARCH_TRIALS = 4
+
+
+def bf16_phase(kernels, seed, scratch, dataset_folder, tr) -> dict:
+    """The main path of this slice: ``start`` of the training main path's
+    config (examples/wikidata5m-complex-train.yaml's hyperparameters,
+    ComplEx dim 128, 2 epochs with validation) with
+    ``--tpu.compute_dtype bfloat16``: K1 reads bf16 operands (cast to
+    float32 for the kernel) twice a step, K2 ranks each validation in
+    float32; params and optimizer state stay float32. Then the card
+    against the host on the first batch, epoch 1 against the float32
+    run's, a ``training_loss`` validation card vs host, and a profiled
+    window of 200 steps. ``tr`` is the train phase's result (its config
+    and epoch 1), or None when that phase did not run."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.utils.io import load_checkpoint
+    from kge_tpu_torch.utils.params import tree_leaves
+
+    if tr is None:
+        config_file = os.path.join(scratch, "complex-negsamp-bf16.yaml")
+        write_train_config(config_file, dataset_folder, seed)
+        f32_first_epoch = None
+    else:
+        config_file = tr["config_file"]
+        f32_first_epoch = tr["first_epoch_avg_loss"]
+    run = os.path.join(scratch, "bf16-run")
+    fresh_device_memory()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    cli.main(["start", config_file, "--folder", run, *BF16])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = counts(kernels)
+    epochs = check_start("bf16", run, launched, dict(
+        shared_ce_loss=2 * 2 * TRAIN_STEPS, rank_counts=2 * VALID_LAUNCHES,
+        adagrad_row_update=0, sgd_row_update=0), 2)
+    print("train bf16 on the card: " + json.dumps(dict(
+        seconds_cli=seconds, peak_device_memory_bytes=peak,
+        k1_launches_per_step=launched["shared_ce_loss"]
+        / sum(e["batches"] for e in epochs))), flush=True)
+
+    stored = load_checkpoint(os.path.join(run, "checkpoint_00002.pt"))
+    if stored["config"]["tpu"]["compute_dtype"] != "bfloat16":
+        fail("the bf16 run's checkpoint does not record its compute dtype")
+    dtypes = {str(np.asarray(x).dtype) for x in (
+        tree_leaves(stored["model"]) + tree_leaves(stored["opt_state"]))}
+    if dtypes != {"float32"}:
+        fail(f"bf16 training stored parameters or optimizer state of "
+             f"dtypes {sorted(dtypes)}, not float32 alone")
+
+    # the host takes K1's plain version (fused_negsamp_loss auto is the
+    # kernel's route on a card only)
+    fused = ["--tpu.fused_negsamp_loss", "always"]
+    compared = card_vs_host("bf16", run, scratch, batches=1,
+                            flags=[*BF16, *fused])
+    if compared["first_batch_relative_difference"] > 1e-2:
+        fail(f"bf16 first batch loss, card vs host: {compared}")
+    first = epochs[0]["avg_loss"]
+    vs_f32 = None
+    if f32_first_epoch is not None:
+        vs_f32 = relative(first, f32_first_epoch)
+        print("train bf16 epoch 1 vs float32: " + json.dumps(dict(
+            bf16=first, float32=f32_first_epoch, relative_difference=vs_f32)),
+            flush=True)
+        if vs_f32 > 2e-2:
+            fail(f"bf16 epoch 1 avg_loss {first} vs float32's "
+                 f"{f32_first_epoch}: {vs_f32}")
+
+    # training_loss: a forward-only epoch over the valid split, K1 forward
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    card = cli.main(["valid", run, "--eval.type", "training_loss", *fused])
+    torch.cuda.synchronize()
+    card_seconds = time.perf_counter() - t0
+    loss_counts = counts(kernels)
+    t0 = time.perf_counter()
+    host = cli.main(["valid", run, "--eval.type", "training_loss", *fused,
+                     "--job.device", "cpu"])
+    host_seconds = time.perf_counter() - t0
+    loss_rel = relative(card["avg_loss"], host["avg_loss"])
+    print("training_loss valid card vs host: " + json.dumps(dict(
+        card=card["avg_loss"], host=host["avg_loss"], size=card["size"],
+        relative_difference=loss_rel, card_seconds_cli=card_seconds,
+        host_seconds_cli=host_seconds, launches=loss_counts)), flush=True)
+    expect_counts("the training_loss validation", loss_counts, dict(
+        shared_ce_loss=TRAINING_LOSS_LAUNCHES, rank_counts=0,
+        adagrad_row_update=0, sgd_row_update=0))
+    if card["type"] != "training_loss" or not math.isfinite(card["avg_loss"]):
+        fail(f"training_loss validation: {card}")
+    if loss_rel > 1e-5:
+        fail(f"training_loss avg_loss card {card['avg_loss']} vs host "
+             f"{host['avg_loss']}: {loss_rel}")
+
+    profiled_window("bf16", run, scratch, 1, batch=TRAIN_BATCH,
+                    unit="triples", flags=BF16)
+    return dict(counts=launched, training_loss_counts=loss_counts,
+                config_file=config_file,
+                best=os.path.join(run, "checkpoint_best.pt"))
+
+
+UTILS_SCRIPT = r"""
+import contextlib, io, json, os, sys, time
+import numpy as np
+import yaml
+sys.path.insert(0, sys.argv[1])
+from kge_tpu_torch import cli
+from kge_tpu_torch.ops import negsamp_loss, rank_count, row_update
+from kge_tpu_torch.utils.io import load_checkpoint
+
+best, config_file, out = sys.argv[2:5]
+kernels = (rank_count.rank_counts, negsamp_loss.shared_ce_loss,
+           row_update.adagrad_row_update, row_update.sgd_row_update)
+seconds = {}
+package = os.path.join(out, "model.pt")
+t0 = time.perf_counter()
+cli.main(["package", best, "--file", package])
+seconds["package"] = time.perf_counter() - t0
+run = os.path.join(out, "pretrained")
+for k in kernels:
+    k.launches = 0
+t0 = time.perf_counter()
+entry = cli.main(["start", config_file, "--folder", run,
+                  "--train.max_epochs", "1",
+                  "--lookup_embedder.pretrain.model_filename", package,
+                  "--lookup_embedder.pretrain.ensure_all", "true"])
+seconds["start_pretrained"] = time.perf_counter() - t0
+launches = {k.__name__: k.launches for k in kernels}
+packaged = load_checkpoint(package)
+initial = load_checkpoint(os.path.join(run, "checkpoint_00000.pt"))
+equal = {key: bool(np.array_equal(
+             initial["model"]["params"][key]["weights"],
+             packaged["model"]["params"][key]["weights"]))
+         for key in ("entity_embedder", "relation_embedder")}
+dumps = {}
+for name, argv in (
+        ("checkpoint_package", ["checkpoint", package]),
+        ("checkpoint_bf16", ["checkpoint", best]),
+        ("checkpoint_pretrained", ["checkpoint",
+                                   os.path.join(run, "checkpoint_00001.pt")]),
+        ("trace_bf16", ["trace", os.path.dirname(best)]),
+        ("trace_pretrained", ["trace", run])):
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        cli.main(["dump", *argv])
+    seconds["dump_" + name] = time.perf_counter() - t0
+    dumps[name] = text.getvalue()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
+print(json.dumps(dict(
+    loaded=loaded, launches=launches, rows_equal=equal, seconds=seconds,
+    package_type=packaged["type"],
+    package_ids=len(packaged["dataset"]["meta"]),
+    epoch=entry["epoch"], avg_loss=entry["avg_loss"],
+    parameter_names=yaml.safe_load(
+        dumps["checkpoint_package"])["parameter_names"],
+    trace_rows={k: v.count("\n") for k, v in dumps.items()
+                if k.startswith("trace")},
+    checkpoint_keys={k: sorted(yaml.safe_load(v)) for k, v in dumps.items()
+                     if k.startswith("checkpoint")},
+    trace_header=dumps["trace_bf16"].splitlines()[0])))
+"""
+
+
+def utils_phase(kernels, scratch, config_file, best) -> dict:
+    """``package`` of the bf16 run's best checkpoint, a 1-epoch float32
+    ``start`` initialized from it by ``lookup_embedder.pretrain`` (its
+    initial rows the package's, bit for bit), ``dump checkpoint`` and
+    ``dump trace`` of both runs: in a subprocess that must load no module
+    of JAX or of the JAX package."""
+    out = os.path.join(scratch, "utils")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", UTILS_SCRIPT, REPO, best, config_file, out],
+        capture_output=True, text=True, timeout=900, cwd=REPO)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the utils subprocess failed: {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("utils verbs: " + json.dumps(dict(seconds_subprocess=seconds,
+                                            **result)), flush=True)
+    if result["loaded"]:
+        fail(f"the utils verbs loaded {result['loaded']}")
+    if result["package_type"] != "package" or not result["package_ids"]:
+        fail("the package is not a packaged model with its id maps")
+    if not all(result["rows_equal"].values()):
+        fail(f"pretrained rows differ from the package's: "
+             f"{result['rows_equal']}")
+    if result["parameter_names"] != ["entity_embedder.weights",
+                                     "relation_embedder.weights"]:
+        fail(f"dump checkpoint names {result['parameter_names']}")
+    if any("parameter_names" not in keys
+           for keys in result["checkpoint_keys"].values()):
+        fail(f"dump checkpoint printed {result['checkpoint_keys']}")
+    if min(result["trace_rows"].values()) < 2:
+        fail(f"dump trace printed too little: {result['trace_rows']}")
+    if result["epoch"] != 1 or not math.isfinite(result["avg_loss"]):
+        fail(f"the pretrained run: epoch {result['epoch']} avg_loss "
+             f"{result['avg_loss']}")
+    expect_counts("the pretrained run", result["launches"], dict(
+        shared_ce_loss=2 * TRAIN_STEPS, rank_counts=VALID_LAUNCHES,
+        adagrad_row_update=0, sgd_row_update=0))
+    return dict(counts=result["launches"])
+
+
+@contextlib.contextmanager
+def recorded_pair_counts(record: list):
+    """Appends to ``record`` the (greater, ties) counts of every query the
+    entity-pair ranking jobs created inside rank, raw then filtered."""
+    from kge_tpu_torch.evaluation.entity_pair_ranking import (
+        EntityPairRankingJob)
+    from kge_tpu_torch.train.job import Job
+
+    def hook(job):
+        if isinstance(job, EntityPairRankingJob):
+            final_rank = job._final_rank
+
+            def recording(greater, ties):
+                record.append((greater, ties))
+                return final_rank(greater, ties)
+
+            job._final_rank = recording
+
+    Job.job_created_hooks.append(hook)
+    try:
+        yield
+    finally:
+        Job.job_created_hooks.remove(hook)
+
+
+def pair_boundary_allowance(model64, s: int, p: int, o: int) -> int:
+    """The (s', o') pairs under p whose float64 score lies at the tie
+    boundary |x - t| = atol + rtol*|t| within the rounding of two float32
+    computations of x and t (D * 2^-24 times |q| . |c| of each, ComplEx's
+    dot form): the pairs that may rank on either side on the card and
+    on the host."""
+    from kge_tpu_torch.models import Ctx
+
+    ctx = Ctx(state=model64.model_state)
+    device = model64.device
+    E = model64.dataset.num_entities()
+    with torch.no_grad():
+        cand, _ = model64.dot_candidates_all(ctx)
+        one = lambda x: torch.tensor([x], device=device)
+        q_true, _ = model64.dot_queries(one(s), one(p), one(o), ctx)
+        true = float(q_true[0] @ cand[o])
+        true_mag = float(q_true[0].abs() @ cand[o].abs())
+        tol = ATOL + RTOL * abs(true)
+        depth = cand.shape[1]
+        near = 0
+        for start in range(0, E, 1024):
+            ids = torch.arange(start, min(start + 1024, E), device=device)
+            q, _ = model64.dot_queries(ids, torch.full_like(ids, p), ids,
+                                       ctx)
+            scores = q @ cand.T
+            rounding = depth * 2.0 ** -24 * (q.abs() @ cand.abs().T
+                                             + true_mag)
+            near += int(((((scores - true).abs() - tol).abs())
+                         <= rounding).sum())
+    return near
+
+
+def pair_ranking_phase(kernels, seed, device, scratch, dataset_folder,
+                       checkpoint=None) -> dict:
+    """``test`` with ``--eval.type entity_pair_ranking`` of a float32
+    ComplEx checkpoint (the train phase's best, else seeded random
+    weights) on the first PAIR_QUERIES test triples, each ranked against
+    all 14,541^2 entity pairs under its relation, on the card and on the
+    host: every query's raw and filtered counts equal but for the pairs at
+    the tie boundary (``pair_boundary_allowance``), the metrics within
+    1e-4."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.models import KgeModel
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    subset = os.path.join(scratch, "pair-ranking-data")
+    write_test_subset(dataset_folder, subset, PAIR_QUERIES)
+    run = os.path.join(scratch, "pair-ranking-run")
+    if checkpoint is None:
+        write_checkpoint(run, dataset_folder, seed, device)
+    else:
+        copy_run(os.path.dirname(checkpoint), run, "checkpoint_best.pt")
+    argv = ["test", run, "--eval.type", "entity_pair_ranking",
+            "--dataset.name", subset, "--console.quiet", "true"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        record = []
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with recorded_pair_counts(record):
+            entry = cli.main([*argv, "--job.device", dev])
+        torch.cuda.synchronize()
+        runs[dev] = dict(entry=entry, record=record,
+                         seconds_cli=time.perf_counter() - t0,
+                         launches=counts(kernels))
+    card, host = runs["cuda"], runs["cpu"]
+    expect_counts("the pair ranking", card["launches"], NO_KERNELS)
+    if len(card["record"]) != 2 * PAIR_QUERIES or (
+            len(host["record"]) != len(card["record"])):
+        fail(f"pair ranking recorded {len(card['record'])} card and "
+             f"{len(host['record'])} host rankings")
+    triples = np.loadtxt(os.path.join(subset, "test.del"), dtype=np.int64,
+                         ndmin=2)
+    model64, differing, allowed = None, 0, 0
+    for i, (a, b) in enumerate(zip(card["record"], host["record"])):
+        worst = max(abs(x - y) for x, y in zip(a, b))
+        if not worst:
+            continue
+        if model64 is None:
+            model64 = KgeModel.create_from(
+                load_checkpoint(os.path.join(run, "checkpoint_best.pt")),
+                device=torch.device("cuda:0")).double()
+        s, p, o = map(int, triples[i // 2])
+        near = pair_boundary_allowance(model64, s, p, o)
+        differing += 1
+        allowed += near
+        if worst > near:
+            fail(f"pair ranking of {(s, p, o)}: card {a} vs host {b}, "
+                 f"{near} pairs at the tie boundary")
+    metrics = {k: v for k, v in card["entry"].items()
+               if k.startswith(("mean_", "hits_"))}
+    worst_metric = max(relative(v, host["entry"][k]) if host["entry"][k]
+                       else abs(v) for k, v in metrics.items())
+    epoch = card["entry"]["epoch_time"]
+    print("pair ranking card vs host: " + json.dumps(dict(
+        queries=PAIR_QUERIES, pairs_per_query=FB15K237["entities"] ** 2,
+        card_seconds=epoch, host_seconds=host["entry"]["epoch_time"],
+        queries_per_s=PAIR_QUERIES / epoch,
+        host_queries_per_s=PAIR_QUERIES / host["entry"]["epoch_time"],
+        differing_rankings=differing, boundary_pairs_in_them=allowed,
+        largest_metric_difference=worst_metric, **metrics)), flush=True)
+    if not 0.0 < metrics["mean_reciprocal_rank_filtered"] <= 1.0:
+        fail(f"pair ranking MRR out of range: {metrics}")
+    if worst_metric > 1e-4:
+        fail(f"pair ranking metrics card vs host apart by {worst_metric}")
+    return dict(counts=card["launches"])
+
+
+def trial_seconds(folder: str) -> list:
+    """Each trial's wall seconds, from its trace's first and last entry."""
+    out = []
+    for name in sorted(os.listdir(folder)):
+        path = os.path.join(folder, name, "trace.yaml")
+        if os.path.isfile(path):
+            stamps = [e["timestamp"] for e in read_trace(
+                os.path.join(folder, name))]
+            out.append(stamps[-1] - stamps[0])
+    return out
+
+
+def search_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """Hyperparameter search on the card (``search.device_pool``
+    [cuda:0]), each trial 1 epoch of the training main path's config,
+    validated through K2: a ``grid_search`` of 2 x 2 trials (Adagrad lr
+    {0.1, 0.2} x negative_sampling.num_samples.o {64, 128}), an
+    ``ax_search`` of 4 trials on the native backend (2 scrambled-Sobol,
+    then the GP-EI phase), and ``resume`` of the finished ``ax_search``,
+    which reruns no trial."""
+    from kge_tpu_torch import cli
+
+    config_file = os.path.join(scratch, "complex-negsamp-search.yaml")
+    write_train_config(config_file, dataset_folder, seed)
+    with open(config_file) as f:
+        base = yaml.safe_load(f)
+    base["job"]["type"] = "search"
+    base["train"]["max_epochs"] = 1
+    base["search"] = {"device_pool": ["cuda:0"], "num_workers": 1}
+    searches = {
+        "grid_search": {"grid_search": {"parameters": {
+            "train.optimizer.default.args.lr": [0.1, 0.2],
+            "negative_sampling.num_samples.o": [64, 128]}}},
+        "ax_search": {"ax_search": {
+            "num_trials": SEARCH_TRIALS, "num_sobol_trials": 2,
+            "parameters": [
+                {"name": "train.optimizer.default.args.lr", "type": "range",
+                 "bounds": [0.05, 0.5], "log_scale": True},
+                {"name": "negative_sampling.num_samples.o",
+                 "type": "choice", "values": [64, 128]}]}},
+    }
+    # a trial's K1 launches: 2 a step; K2: one validation
+    want = dict(shared_ce_loss=SEARCH_TRIALS * 2 * TRAIN_STEPS,
+                rank_counts=SEARCH_TRIALS * VALID_LAUNCHES,
+                adagrad_row_update=0, sgd_row_update=0)
+    out = {}
+    for search_type, section in searches.items():
+        path = os.path.join(scratch, f"{search_type}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump({**base, "search": {**base["search"],
+                                               "type": search_type},
+                            **section}, f)
+        folder = os.path.join(scratch, search_type)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        result = cli.main(["start", path, "--folder", folder])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts(kernels)
+        trials = trial_seconds(folder)
+        valids = [e for e in read_trace(folder, scope="train")
+                  if "mean_reciprocal_rank_filtered" in e]
+        devices = {yaml.safe_load(open(os.path.join(
+            folder, name, "config.yaml")))["job"]["device"]
+            for name in os.listdir(folder)
+            if os.path.isfile(os.path.join(folder, name, "config.yaml"))}
+        from kge_tpu_torch.search.ax import HAVE_AX
+
+        print(f"search {search_type} on the card: " + json.dumps(dict(
+            backend="ax-platform" if HAVE_AX else "native",
+            seconds_cli=seconds, trials=len(trials), trial_seconds=trials,
+            seconds_per_trial=seconds / max(len(trials), 1),
+            best_trial=result.get("best_trial"), devices=sorted(devices),
+            launches=launched, valid_mrr_filtered=[
+                v["mean_reciprocal_rank_filtered"] for v in valids])),
+            flush=True)
+        expect_counts(f"the {search_type}", launched, want)
+        if len(trials) != SEARCH_TRIALS or result.get("best_trial") is None:
+            fail(f"{search_type}: {len(trials)} trials, result {result}")
+        if devices != {"cuda:0"}:
+            fail(f"{search_type} trials ran on {devices}")
+        if len(valids) != SEARCH_TRIALS or not all(
+                0.0 < v["mean_reciprocal_rank_filtered"] <= 1.0
+                for v in valids):
+            fail(f"{search_type}: trial validations missing or out of range")
+        out[search_type] = dict(counts=launched, result=result)
+
+    # resume of the finished ax_search: no trial runs again
+    reset_counts(kernels)
+    folder = os.path.join(scratch, "ax_search")
+    resumed = cli.main(["resume", folder])
+    launched = counts(kernels)
+    print("search ax_search resumed: " + json.dumps(dict(
+        best_trial=resumed.get("best_trial"), launches=launched)),
+        flush=True)
+    expect_counts("the resumed ax_search", launched, NO_KERNELS)
+    if resumed.get("best_trial") != out["ax_search"]["result"]["best_trial"]:
+        fail(f"the resumed ax_search found another best trial: {resumed}")
+    out["ax_resume"] = dict(counts=launched)
+    return out
+
+
 PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
-          "compgcn", "rgnn_encoders", "conve", "scorers", "train", "sgd", "kvsall", "1vsall", "triple",
-          "wikidata5m")
+          "compgcn", "rgnn_encoders", "conve", "scorers", "train", "sgd",
+          "bf16", "utils", "pair_ranking", "search", "kvsall", "1vsall",
+          "triple", "wikidata5m")
 
 
 def main():
@@ -2753,6 +3278,13 @@ def main():
         tr = run("train", train_phase, kernels, args.seed, scratch, graph)
         if tr is not None:
             run("sgd", sgd_phase, kernels, scratch, tr["config_file"])
+        bf = run("bf16", bf16_phase, kernels, args.seed, scratch, graph, tr)
+        if bf is not None:
+            run("utils", utils_phase, kernels, scratch, bf["config_file"],
+                bf["best"])
+        run("pair_ranking", pair_ranking_phase, kernels, args.seed, device,
+            scratch, graph, tr and tr["best"])
+        run("search", search_phase, kernels, args.seed, scratch, graph)
         run("kvsall", kvsall_phase, kernels, args.seed, scratch, graph)
         run("1vsall", onevsall_phase, kernels, args.seed, scratch, graph)
         run("triple", triple_phase, kernels, args.seed, scratch, graph)
@@ -2774,6 +3306,7 @@ def main():
     ev, tr, sgd = results["eval"], results["train"], results["sgd"]
     kv, one, tri = results["kvsall"], results["1vsall"], results["triple"]
     w5m, conve = results["wikidata5m"], results["conve"]
+    bf, search = results["bf16"], results["search"]
 
     # each kernel's launches in every run that drives a path, the counts
     # set to 0 before the run and read after it
@@ -2791,7 +3324,13 @@ def main():
         "sgd_sparse": sgd["counts"], "kvsall": kv["start"],
         "kvsall_resume": kv["resume"], "1vsall": one["start"],
         "triple_sparse": tri["start"], "wikidata5m": w5m["counts"],
-        "wikidata5m_valid": w5m["valid_counts"]}
+        "wikidata5m_valid": w5m["valid_counts"],
+        "bf16": bf["counts"], "bf16_training_loss": bf["training_loss_counts"],
+        "utils_pretrained": results["utils"]["counts"],
+        "pair_ranking": results["pair_ranking"]["counts"],
+        "search_grid": search["grid_search"]["counts"],
+        "search_ax": search["ax_search"]["counts"],
+        "search_ax_resume": search["ax_resume"]["counts"]}
 
     def phases(name):
         return {phase: c[name] for phase, c in by_phase.items()}
@@ -2800,7 +3339,7 @@ def main():
         name="rank_counts", route="cuda",
         source="kge_tpu_torch/csrc/rank_count.cu",
         replaces="kge_tpu/ops/pallas/rank_count.py:42",
-        launches=conve["start"]["rank_counts"],
+        launches=bf["counts"]["rank_counts"],
         max_abs_err=max(k2["max_abs_err"], *(
             w["max_abs_err"] for w in results["k2_widths"])),
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
@@ -2813,11 +3352,14 @@ def main():
         name="shared_ce_loss", route="cuda",
         source="kge_tpu_torch/csrc/negsamp_loss.cu",
         replaces="kge_tpu/ops/pallas/negsamp_loss.py:44",
-        launches=tr["k1_launches"], max_abs_err=k1["max_abs_err"],
+        launches=bf["counts"]["shared_ce_loss"],
+        max_abs_err=k1["max_abs_err"],
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
         kernel_us=k1["kernel_us"], host_us=k1["host_us"],
         library_kernel_us=k1["library_kernel_us"],
+        bf16_ms=k1["bf16_ms"], bf16_kernel_us=k1["bf16_kernel_us"],
+        bf16_host_us=k1["bf16_host_us"],
         launches_by_phase=phases("shared_ce_loss"),
     )] + [dict(
         name=f"row_update_{optimizer}", route="cuda",

@@ -6,8 +6,11 @@ creates) a training job in a new folder, ``resume <folder>`` continues a
 job from its folder's last checkpoint, ``eval|valid|test <folder or
 checkpoint>`` evaluates a checkpoint written by either package; every
 flattened configuration key is available as a ``--key value`` flag.
-``dump config <source>`` prints a configuration. The other verbs of
-``kge_tpu`` exit with "not yet ported".
+``dump trace|checkpoint|config <source>`` prints a trace as CSV or YAML,
+a checkpoint's metadata or a configuration (``utils/dump.py``);
+``package <checkpoint>`` writes a distributable model file
+(``utils/package.py``); ``import-libkge <checkpoint> --file <out>``
+converts a LibKGE checkpoint (``utils/import_libkge.py``).
 """
 
 from __future__ import annotations
@@ -19,16 +22,12 @@ import sys
 import traceback
 from typing import Any, Dict, List, Optional
 
-import yaml
-
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.utils.io import get_checkpoint_file, load_checkpoint
 from kge_tpu_torch.utils.misc import kge_base_dir, resolve_device
 from kge_tpu_torch.utils.seed import seed_from_config
-
-NOT_PORTED = ("package", "import-libkge")
 
 #: parser arguments that are not configuration keys
 _NON_CONFIG = ("config", "folder", "run", "command", "checkpoint")
@@ -83,17 +82,27 @@ def create_parser(config: Config) -> argparse.ArgumentParser:
                             "'best', or an epoch number")
         add_config_flags(p, config)
 
-    parser_dump = subparsers.add_parser("dump", help="Dump a configuration")
-    dump_sub = parser_dump.add_subparsers(dest="dump_command")
-    dump_sub.required = True
-    p = dump_sub.add_parser("config", help="Dump a job's configuration")
-    p.add_argument("source", type=str)
-    p.add_argument("--raw", action="store_true")
-    p.add_argument("--full", action="store_true")
-    p.add_argument("--minimal", action="store_true")
+    from kge_tpu_torch.utils.dump import add_dump_parsers
 
-    for name in NOT_PORTED:
-        subparsers.add_parser(name, help="not yet ported")
+    add_dump_parsers(subparsers.add_parser(
+        "dump", help="Dump trace, checkpoint, or config"))
+
+    parser_package = subparsers.add_parser(
+        "package", help="Strip a checkpoint into a distributable model file")
+    parser_package.add_argument("checkpoint", type=str)
+    parser_package.add_argument("--file", type=str, default=None)
+
+    parser_import = subparsers.add_parser(
+        "import-libkge",
+        help="Convert a trained LibKGE (PyTorch) checkpoint into this "
+             "framework's format")
+    parser_import.add_argument("checkpoint", type=str)
+    parser_import.add_argument("--file", type=str, required=True,
+                               help="output checkpoint path")
+    parser_import.add_argument("--dataset-folder", type=str, default=None,
+                               help="dataset folder (required for R-GNN "
+                                    "models; otherwise entity/relation "
+                                    "counts are inferred from the tables)")
     return parser
 
 
@@ -126,33 +135,6 @@ def _collect_overrides(args, config: Config) -> Dict[str, Any]:
         if value is not None and key not in _NON_CONFIG
         and (key in known or "." in key)
     }
-
-
-def dump_config(args):
-    """Print a configuration from a folder, config.yaml or checkpoint:
-    raw, full (default), or only the keys that differ from the defaults."""
-    source = args.source
-    if os.path.isdir(source):
-        source = os.path.join(source, "config.yaml")
-    if source.endswith(".pt"):
-        raw_options = Config.create_from(load_checkpoint(source)).options
-    else:
-        with open(source) as f:
-            raw_options = yaml.safe_load(f)
-    if args.raw:
-        print(yaml.dump(raw_options, default_flow_style=False))
-        return
-    config = Config()
-    config.load_options(dict(raw_options), create=True)
-    if args.full or not args.minimal:
-        print(yaml.dump(config.options, default_flow_style=False))
-        return
-    flat_default = Config.flatten(Config().options)
-    diff = {
-        k: v for k, v in Config.flatten(config.options).items()
-        if flat_default.get(k, "<ABSENT>") != v
-    }
-    print(yaml.dump(diff, default_flow_style=False))
 
 
 def _new_job_config(args, unknown: List[str]) -> Optional[Config]:
@@ -210,11 +192,29 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     config = Config()
     parser = create_parser(config)
     args, unknown = parser.parse_known_args(argv)
-    if args.command in NOT_PORTED:
-        sys.exit(f"kge_tpu_torch: '{args.command}' is not yet ported "
-                 "(use python -m kge_tpu)")
     if args.command == "dump":
-        dump_config(args)
+        from kge_tpu_torch.utils.dump import dump
+
+        try:
+            dump(args)
+        except BrokenPipeError:
+            # a pager or head closed the pipe: exit quietly
+            sys.stderr.close()
+        return None
+    if args.command == "import-libkge":
+        from kge_tpu_torch.utils.import_libkge import (
+            import_reference_checkpoint)
+        from kge_tpu_torch.utils.io import save_checkpoint
+
+        checkpoint = import_reference_checkpoint(
+            args.checkpoint, dataset_folder=args.dataset_folder)
+        save_checkpoint(args.file, checkpoint)
+        print(f"imported {args.checkpoint} -> {args.file}")
+        return None
+    if args.command == "package":
+        from kge_tpu_torch.utils.package import package_model
+
+        package_model(args.checkpoint, args.file)
         return None
 
     checkpoint = None

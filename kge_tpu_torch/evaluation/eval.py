@@ -34,10 +34,6 @@ class EvaluationJob(TrainingOrEvaluationJob):
     def create(config: Config, dataset: Dataset, parent_job=None,
                model: Optional[KgeModel] = None) -> "EvaluationJob":
         eval_type = config.get("eval.type")
-        if eval_type != "entity_ranking":
-            raise NotImplementedError(
-                f"eval.type {eval_type} is not yet ported to kge_tpu_torch "
-                "(entity_ranking is)")
         class_name = config.get_default(eval_type + ".class_name")
         return init_from(
             class_name, config.modules(), config, dataset,

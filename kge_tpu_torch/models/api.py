@@ -18,6 +18,7 @@ with dots (``entity_embedder.weights``, ``relation_embedder.weights``);
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,17 @@ from kge_tpu_torch.utils.params import (
 )
 
 S, P, O = 0, 1, 2
+
+
+def promoted(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common dtype by numpy's (and ``jnp``'s)
+    promotion: bf16 with float32 gives float32. Under
+    ``tpu.compute_dtype: bfloat16`` the embeddings are bf16 and the
+    scorers' weights float32; ``jnp`` promotes such a product, where
+    torch's matmul, einsum and conv raise."""
+    dtype = functools.reduce(torch.promote_types,
+                             (t.dtype for t in tensors))
+    return tuple(t.to(dtype) for t in tensors)
 
 
 class Ctx:

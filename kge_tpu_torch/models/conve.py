@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer
+from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer, promoted
 from kge_tpu_torch.models.init import initialize
 
 
@@ -134,7 +134,10 @@ class ConvEScorer(RelationalScorer):
         s_2d = s_emb[:, 1:].reshape(-1, 1, self.emb_height, self.emb_width)
         p_2d = p_emb[:, 1:].reshape(-1, 1, self.emb_height, self.emb_width)
         stacked = torch.cat([s_2d, p_2d], dim=2)
-        out = F.conv2d(stacked, self.conv_w, stride=self.stride,
+        # bf16 embeddings (tpu.compute_dtype) meet the float32 kernel in
+        # float32, as jnp promotes them (kge_tpu's lax.conv refuses the
+        # mix instead)
+        out = F.conv2d(*promoted(stacked, self.conv_w), stride=self.stride,
                        padding=self.padding)
         if self.convolution_bias:
             out = out + self.conv_b[None, :, None, None]
@@ -172,6 +175,7 @@ class ConvEScorer(RelationalScorer):
         batch_size = p_emb.shape[0]
         out = self._features(s_emb, p_emb, ctx)
         if combine == "sp_":
+            out, o_emb = promoted(out, o_emb)
             out = out @ o_emb[:, 1:].T
         else:
             out = torch.sum(out * o_emb[:, 1:], dim=-1)

@@ -16,7 +16,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from kge_tpu_torch.models.api import Ctx, KgeEmbedder
+from kge_tpu_torch.models.api import Ctx, KgeEmbedder, promoted
 
 
 class ProjectionEmbedder(KgeEmbedder):
@@ -48,7 +48,8 @@ class ProjectionEmbedder(KgeEmbedder):
         self.projection = nn.Parameter(weights, requires_grad=False)
 
     def _project(self, emb: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        return ctx.dropout(emb @ self.projection.T, self.dropout_rate)
+        emb, projection = promoted(emb, self.projection)
+        return ctx.dropout(emb @ projection.T, self.dropout_rate)
 
     def embed(self, indexes: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         return self._project(self.base.embed(indexes, ctx), ctx)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer
+from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer, promoted
 from kge_tpu_torch.models.embedder.projection import (
     rescal_set_relation_embedder_dim,
 )
@@ -170,6 +170,9 @@ class RescalScorer(RelationalScorer):
     supports_dot_form = True
 
     def query_vec(self, a_emb, p_emb, combine, ctx):
+        # RelationalTucker3's projected relations are float32 while bf16
+        # entities (tpu.compute_dtype) meet them: jnp's promotion
+        a_emb, p_emb = promoted(a_emb, p_emb)
         dim = a_emb.shape[-1]
         p_mix = p_emb.reshape(-1, dim, dim)
         if combine == "sp_":
@@ -182,6 +185,7 @@ class RescalScorer(RelationalScorer):
     def score_emb(self, s_emb, p_emb, o_emb, combine, ctx: Ctx):
         n = p_emb.shape[0]
         dim = s_emb.shape[-1]
+        s_emb, p_emb, o_emb = promoted(s_emb, p_emb, o_emb)
         p_mix = p_emb.reshape(-1, dim, dim)
         if combine == "spo":
             out = torch.sum(

@@ -254,6 +254,9 @@ class Rgnn(KgeBase):
         return state
 
     def forward(self, x, r, graph, ctx: Ctx):
+        # bf16 embeddings (tpu.compute_dtype) meet every layer's float32
+        # weights first, a product jnp promotes: the layers run in float32
+        x, r = (t.float() if t.dtype == torch.bfloat16 else t for t in (x, r))
         for layer in self.layers:
             if self.layer_type == "torch_rgcn":
                 x = self.activation(x)  # rgcn activates before the layer

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer
+from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer, promoted
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
@@ -148,6 +148,7 @@ class TransformerScorer(RelationalScorer):
         batch_size = s_emb.shape[0]
         out = self._cls_out(s_emb, p_emb, ctx)
         if combine == "sp_":
+            out, o_emb = promoted(out, o_emb)
             out = out @ o_emb.T
         else:
             out = torch.sum(out * o_emb, dim=-1)

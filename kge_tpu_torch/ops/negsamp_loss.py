@@ -14,6 +14,12 @@ forward launches the hand-written kernel ``csrc/negsamp_loss.cu`` (and
 counts the launch in ``shared_ce_loss.launches``); on a CPU tensor it
 takes the plain version ``shared_ce_loss_reference``. The backward is
 plain torch in both cases, as ``kge_tpu``'s custom VJP is plain XLA.
+
+Under ``tpu.compute_dtype: bfloat16`` q, cand and pos arrive in bf16:
+the autograd function casts its operands to float32 before the kernel
+(as ``kge_tpu``'s ``_forward`` does before its ``pallas_call``), and its
+backward computes in float32 and returns each gradient in its operand's
+dtype (``_bwd``).
 """
 
 from __future__ import annotations
@@ -137,9 +143,11 @@ def shared_ce_forward(q: torch.Tensor, cand: torch.Tensor,
     if B == 0:
         return q.new_zeros(()), q.new_empty((0,))
     out = torch.empty(_out_size(B), dtype=torch.float32, device=device)
+    # the raw stream handle, as the row-update wrapper takes it: no
+    # torch.cuda.Stream object a call
     args = (q.data_ptr(), cand.data_ptr(), pos.data_ptr(), counts.data_ptr(),
             w.data_ptr(), out.data_ptr(), B, N, D,
-            torch.cuda.current_stream(device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(device.index))
     if device.index == torch.cuda.current_device():
         err = _library().kge_shared_ce_loss(*args)
     else:
@@ -156,6 +164,9 @@ def shared_ce_forward(q: torch.Tensor, cand: torch.Tensor,
 class _SharedCELoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, cand, pos, counts, w):
+        ctx.dtypes = q.dtype, cand.dtype, pos.dtype
+        q, cand, pos, w = (x.float() if x.dtype == torch.bfloat16 else x
+                           for x in (q, cand, pos, w))
         loss, lse = shared_ce_forward(q, cand, pos, counts, w)
         ctx.save_for_backward(q, cand, pos, counts, w, lse)
         return loss
@@ -172,7 +183,9 @@ class _SharedCELoss(torch.autograd.Function):
         gw = g * w
         d_pos = gw * (torch.exp(pos - lse) - 1.0)
         d_scores = gw[:, None] * p
-        return d_scores @ cand, d_scores.T @ q, d_pos, None, None
+        q_dtype, cand_dtype, pos_dtype = ctx.dtypes
+        return ((d_scores @ cand).to(q_dtype), (d_scores.T @ q).to(cand_dtype),
+                d_pos.to(pos_dtype), None, None)
 
 
 def shared_ce_loss(q: torch.Tensor, cand: torch.Tensor, pos: torch.Tensor,
@@ -182,7 +195,9 @@ def shared_ce_loss(q: torch.Tensor, cand: torch.Tensor, pos: torch.Tensor,
 
     q [B, D] query vectors, cand [N, D] unique candidate vectors, pos [B]
     positive scores, counts [B, N] multiplicity of each candidate in row
-    b's sample, w [B] row weights: float32, contiguous, on one device."""
+    b's sample, w [B] row weights: contiguous, on one device; counts
+    float32, the others float32 or bf16 (bf16 is cast to float32 for
+    the kernel; other dtypes are refused)."""
     return _SharedCELoss.apply(q, cand, pos, counts, w)
 
 

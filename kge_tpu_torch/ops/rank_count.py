@@ -145,7 +145,7 @@ def rank_counts(q: torch.Tensor, cand: torch.Tensor, true: torch.Tensor,
     out = torch.empty((2, B), dtype=torch.int32, device=device)
     args = (q.data_ptr(), cand.data_ptr(), true.data_ptr(),
             cand_valid.data_ptr(), out.data_ptr(), B, C, D, atol, rtol,
-            torch.cuda.current_stream(device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(device.index))
     if device.index == torch.cuda.current_device():
         err = _kernel()(*args)
     else:

@@ -1,9 +1,8 @@
 """Job base: factory, hooks, tracing (counterpart of
 ``kge_tpu/train/job.py``; reference: kge/job/job.py).
 
-Jobs are host-side orchestration. The port runs training (negative
-sampling) and evaluation jobs; ``job.type`` search raises "not yet
-ported".
+Jobs are host-side orchestration: training, evaluation and search
+jobs.
 """
 
 from __future__ import annotations
@@ -65,8 +64,9 @@ class Job(Configurable):
     def create(config: Config, dataset: Optional[Dataset] = None,
                parent_job: Optional["Job"] = None, model=None,
                forward_only: bool = False) -> "Job":
-        """Create a job from ``job.type`` (train and eval are ported)."""
+        """Create a job from ``job.type`` (train/eval/search)."""
         from kge_tpu_torch.evaluation.eval import EvaluationJob
+        from kge_tpu_torch.search.search import SearchJob
         from kge_tpu_torch.train.train import TrainingJob
 
         if dataset is None:
@@ -82,9 +82,7 @@ class Job(Configurable):
                 config, dataset, parent_job=parent_job, model=model
             )
         if job_type == "search":
-            raise NotImplementedError(
-                f"job.type {job_type} is not yet ported to kge_tpu_torch"
-            )
+            return SearchJob.create(config, dataset, parent_job=parent_job)
         raise ValueError(f"unknown job.type {job_type}")
 
     @staticmethod

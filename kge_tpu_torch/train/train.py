@@ -31,9 +31,13 @@ decides no dispatch here: the port runs one step a batch. It still
 orders KvsAll's batches, which ``kge_tpu`` regroups into runs of one
 compiled shape; the port draws the same order.
 
+Under ``tpu.compute_dtype: bfloat16`` the embedders hand the scorers
+bf16 embeddings in training (``LookupEmbedder._cast``); parameters,
+gradients and optimizer state stay float32, and every loss casts its
+scores to float32 first (``loss._Float32Loss``), as in ``kge_tpu``.
+
 Not ported here: meshes and multi-host runs, grouped and device-resident
-dispatch, the prefetch thread, row chunking, ``tpu.profile_dir`` and
-``tpu.compute_dtype: bfloat16``.
+dispatch, the prefetch thread, row chunking and ``tpu.profile_dir``.
 """
 
 from __future__ import annotations
@@ -74,9 +78,7 @@ def _refuse_unported(config: Config):
     if config.get("tpu.multihost.enabled") == "on":
         raise NotImplementedError(
             "tpu.multihost is not yet ported to kge_tpu_torch")
-    if config.check("tpu.compute_dtype", ["float32", "bfloat16"]) != "float32":
-        raise NotImplementedError(
-            "tpu.compute_dtype bfloat16 is not yet ported to kge_tpu_torch")
+    config.check("tpu.compute_dtype", ["float32", "bfloat16"])
     if config.get("tpu.profile_dir"):
         raise NotImplementedError(
             "tpu.profile_dir is not yet ported to kge_tpu_torch (profile "
@@ -130,9 +132,12 @@ class TrainingJob(TrainingOrEvaluationJob):
         #: never sees them, only the rows a step gathers from them
         self._sparse_paths = () if forward_only else tuple(
             self._sparse_table_paths())
-        for name, p in self.model.named_parameters():
-            p.requires_grad_(not forward_only
-                             and name not in self._sparse_paths)
+        # a forward-only job (the training_loss evaluation) may share the
+        # model of a training job: it leaves the flags alone and steps
+        # under no_grad
+        if not forward_only:
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(name not in self._sparse_paths)
         self.epoch = 0
         self.valid_trace: List[Dict[str, Any]] = []
         self.abort_on_nan: bool = config.get("train.abort_on_nan")

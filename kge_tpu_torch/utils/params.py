@@ -92,3 +92,19 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
+
+
+def tree_paths(tree: Any, prefix: str = "") -> List[str]:
+    """The dotted path of each leaf, in ``tree_leaves``' order and as
+    ``jax.tree_util.tree_flatten_with_path`` names them in ``kge_tpu``'s
+    ``dump checkpoint`` (dict keys as they are, list positions as
+    ``[i]``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [path for key in sorted(tree)
+                for path in tree_paths(tree[key], f"{prefix}{key}.")]
+    if isinstance(tree, (tuple, list)):
+        return [path for i, item in enumerate(tree)
+                for path in tree_paths(item, f"{prefix}[{i}].")]
+    return [prefix[:-1]]

@@ -165,8 +165,11 @@ def test_dump_config_and_unported_verbs(jax_folder, capsys, tmp_path):
     assert result["epoch"] == 1 and result["type"] == "KvsAll"
     assert np.isfinite(result["avg_loss"])
     assert os.path.isfile(os.path.join(folder, "checkpoint_00001.pt"))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["package", os.path.join(jax_folder, "checkpoint_best.pt")])
+    # every verb of kge_tpu is ported: package writes kge_tpu's model file
+    packaged = str(tmp_path / "model.pt")
+    cli.main(["package", os.path.join(jax_folder, "checkpoint_best.pt"),
+              "--file", packaged])
+    assert jax_load_checkpoint(packaged)["type"] == "package"
 
 
 #: toy ComplEx trained by shared negative sampling with the kl loss
@@ -391,3 +394,70 @@ def test_sparse_checkpoints_cross_over(writer, tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-5)
         assert_tables_close(other_tables(job), tables(want_job),
                             **TABLE_TOL)
+
+
+VERBS_SCRIPT = """
+import json, sys
+from kge_tpu_torch import cli
+
+folder, libkge_file, out = sys.argv[1:4]
+cpu = ["--job.device", "cpu", "--console.quiet", "true"]
+run = out + "/bf16"
+started = cli.main(["start", "examples/toy-complex-train.yaml", "--folder",
+                    run, "--train.max_epochs", "1", "--valid.every", "1",
+                    "--train.type", "negative_sampling",
+                    "--negative_sampling.shared", "true",
+                    "--negative_sampling.implementation", "batch",
+                    "--train.loss", "kl", "--tpu.compute_dtype", "bfloat16",
+                    *cpu])
+loss = cli.main(["valid", run, "--eval.type", "training_loss", *cpu])
+cli.main(["package", run + "/checkpoint_best.pt", "--file",
+          out + "/model.pt"])
+cli.main(["import-libkge", libkge_file, "--file", out + "/imported.pt"])
+cli.main(["dump", "trace", run])
+cli.main(["dump", "checkpoint", out + "/model.pt"])
+cli.main(["dump", "checkpoint", out + "/imported.pt"])
+search = cli.main(["start", "examples/toy-complex-search-grid.yaml",
+                   "--folder", out + "/grid", "--train.max_epochs", "1",
+                   "--valid.every", "1", *cpu])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
+print(json.dumps(dict(loaded=loaded, epoch=started["epoch"],
+                      loss_type=loss["type"], avg_loss=loss["avg_loss"],
+                      best_trial=search["best_trial"])))
+"""
+
+
+def test_cli_verbs_without_importing_kge_tpu(jax_folder, tmp_path):
+    """package, import-libkge, dump trace and dump checkpoint, a bf16
+    start, a training_loss validation and the toy grid search example, in
+    a subprocess that loads no JAX module; kge_tpu loads the package and
+    the imported checkpoint."""
+    libkge_file = str(tmp_path / "libkge.pt")
+    rng = np.random.default_rng(0)
+    torch.save({"type": "train", "epoch": 3, "valid_trace": [],
+                "model": ({
+                    "_entity_embedder._embeddings.weight": torch.from_numpy(
+                        rng.normal(size=(120, 16)).astype(np.float32)),
+                    "_relation_embedder._embeddings.weight":
+                        torch.from_numpy(rng.normal(size=(9, 16))
+                                         .astype(np.float32))}, {}),
+                "config": {"model": "complex", "lookup_embedder": {"dim": 16},
+                           "job": {"device": "cuda"}}}, libkge_file)
+    out = str(tmp_path / "out")
+    os.makedirs(out)
+    r = _run(["-c", VERBS_SCRIPT, jax_folder, libkge_file, out],
+             env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    result = json.loads(r.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert result["epoch"] == 1 and result["loss_type"] == "training_loss"
+    assert np.isfinite(result["avg_loss"])
+    assert result["best_trial"] in (0, 1, 2, 3)
+    assert "parameter_names:" in r.stdout and "avg_loss" in r.stdout
+    model, params, _ = JaxKgeModel.create_from(
+        jax_load_checkpoint(os.path.join(out, "model.pt")))
+    assert model.dataset.num_entities() == 120
+    imported = jax_load_checkpoint(os.path.join(out, "imported.pt"))
+    assert imported["type"] == "import" and imported["epoch"] == 3
+    JaxKgeModel.create_from(imported)

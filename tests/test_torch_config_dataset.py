@@ -79,8 +79,11 @@ def test_port_config_in_a_checkpoint_loads_in_kge_tpu():
 
 
 def test_port_modules_rewrite():
-    assert port_modules(["kge_tpu.models", "kge_tpu.search", "my.plugin"]) \
-        == ["kge_tpu_torch.models", "my.plugin"]
+    """kge_tpu's modules map to the port's; one the port lacks (the
+    multi-device ``kge_tpu.parallel``) is dropped; others pass through."""
+    assert port_modules(["kge_tpu.models", "kge_tpu.search",
+                         "kge_tpu.parallel", "my.plugin"]) \
+        == ["kge_tpu_torch.models", "kge_tpu_torch.search", "my.plugin"]
 
 
 @pytest.fixture
