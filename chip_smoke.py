@@ -207,10 +207,35 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    trial); ``resume`` of the finished ``ax_search`` launches nothing and
    finds the same best trial; prints the seconds per trial.
 
+23. device_epoch phase, the main path of this slice (run after the
+   train phase): the train phase's ``start`` at kge_tpu's defaults
+   (``tpu.on_device_sampling: auto`` samples the shared negatives on the
+   card, ``tpu.steps_per_dispatch: 4``): the epoch's positives uploaded
+   once, each group of 4 steps a CUDA graph replay (the job's first group
+   eagerly, its warm-up), a 2-step eager tail; 2 epochs with a validation
+   after each (K1 1,064: 2 a step, counted through the replays; K2 276;
+   131 replays), then
+   ``resume`` to epoch 3 (K1 532, K2 138, 65 replays); the log must say
+   that negatives are sampled on the device and groups captured; a
+   ``training_loss`` validation drawn on the card in captured groups (K1
+   36, 3 replays); epoch 1
+   again captured and eagerly with the host's draws (``on_device_sampling
+   never``, ``steps_per_dispatch 1``): ms a step, triples/s, host µs a
+   dispatch; a 200-step window profiled (device busy share, leading
+   kernels, peak memory with the graph pool); host µs and device ms of a
+   replay; under ``torch.use_deterministic_algorithms`` the captured run
+   against ``steps_per_dispatch 1`` (epoch losses and tables within
+   1e-6) and epoch 3 after ``resume`` bit for bit a fresh 3-epoch run's;
+   10,000 draws of ``device_shared_sample`` at the recipe's shape (num
+   128, 14,541 entities) against their exact distributions (chi-square p
+   >= 1e-3; nu's mean within 3 standard errors). Phases 6, 8, 16, 19-22
+   and 9's comparisons pin ``tpu.on_device_sampling: never``: they hold
+   the card against the host, whose draws cannot be Philox's.
+
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
 every run that drives a path, ``launches_by_phase``; K1's and K2's
-``launches`` are the bf16 main path's, K2's ``widths`` phase 14's
-shapes) and, last,
+``launches`` are the device_epoch main path's, K2's ``widths`` phase
+14's shapes) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero when no CUDA device is
 present, the package is missing, or a module of JAX or of ``kge_tpu``
 was loaded.
@@ -233,8 +258,14 @@ import tempfile
 import time
 
 import numpy as np
-import torch
-import yaml
+
+# cuBLAS is deterministic under torch.use_deterministic_algorithms (the
+# device_epoch phase's bit-for-bit checks) only with a fixed workspace
+# configuration, read when its first handle is made; this is the size
+# PyTorch gives a Hopper card anyway
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
+import yaml  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -347,7 +378,9 @@ _SHARED_KL = dict(
     sections={"negative_sampling": {
         "num_samples": {"s": NEGATIVES, "o": NEGATIVES}, "shared": True,
         "implementation": "batch"},
-        "tpu": {"fused_negsamp_loss": "always"}},
+        # card vs host: the host's draws on both
+        "tpu": {"fused_negsamp_loss": "always",
+                "on_device_sampling": "never"}},
     k1=True, k3=False, route="fused")
 # the toy-transe example's margin ranking over 8 + 8 negatives (auto
 # scoring resolves to triple)
@@ -713,15 +746,17 @@ def eval_phase(rc, kernels, seed, device, scratch) -> dict:
                 counts=eval_counts)
 
 
-def profile_run(label: str, span_prefix: str, run, epoch_only=False):
+def profile_run(label: str, span_prefix: str, run, epoch_only=False,
+                epoch=None):
     """Where a run's time goes: ``run()`` (which returns a trace entry with
     ``epoch_time``) under torch.profiler; prints the host time of the
     ``record_function`` spans named ``span_prefix*``, the device time by
     kernel, and the device's busy share of the epoch (the profiler's own
     cost included). With ``epoch_only`` the profiler records the training
     epoch alone (started and stopped by the job's epoch hooks), not the
-    checkpoint loads and saves around it. Returns the trace entry and the
-    device time by kernel."""
+    checkpoint loads and saves around it; with ``epoch`` too, that epoch
+    only (the run's last). Returns the trace entry and the device time by
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from kge_tpu_torch.train.job import Job
@@ -730,10 +765,15 @@ def profile_run(label: str, span_prefix: str, run, epoch_only=False):
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     if epoch_only:
         def window(job):
+            def inside(j):
+                return epoch is None or j.epoch == epoch
+
             if isinstance(job, TrainingJob):
-                job.pre_epoch_hooks.append(lambda _: prof.start())
+                job.pre_epoch_hooks.append(
+                    lambda j: prof.start() if inside(j) else None)
                 job.post_epoch_hooks.append(
-                    lambda _: (torch.cuda.synchronize(), prof.stop()))
+                    lambda j: (torch.cuda.synchronize(), prof.stop())
+                    if inside(j) else None)
 
         Job.job_created_hooks.append(window)
         try:
@@ -1353,10 +1393,16 @@ def k3_phase(ru, seed, device) -> dict:
 # ----------------------------------------------------------------- train
 
 
-def write_train_config(path: str, dataset_folder: str, seed: int):
+def write_train_config(path: str, dataset_folder: str, seed: int,
+                       host_sampling: bool = True):
     """The training main path: the hyperparameters of
     examples/wikidata5m-complex-train.yaml on the synthetic graph, 2
-    epochs with validation after each."""
+    epochs with validation after each. With ``host_sampling`` the
+    negatives are drawn on the host (``tpu.on_device_sampling: never``):
+    the phases that hold the card's trajectory against the host's need
+    the host's draws on both (CUDA's Philox stream and the CPU's cannot
+    match); the device_epoch phase runs the config at kge_tpu's
+    defaults."""
     config = {
         "job": {"type": "train"},
         "dataset": {"name": dataset_folder},
@@ -1382,6 +1428,8 @@ def write_train_config(path: str, dataset_folder: str, seed: int):
         "random_seed": {"default": seed},
         "console": {"quiet": True},
     }
+    if host_sampling:
+        config["tpu"] = {"on_device_sampling": "never"}
     with open(path, "w") as f:
         yaml.safe_dump(config, f)
 
@@ -1730,8 +1778,11 @@ def kvsall_phase(kernels, seed, scratch, dataset_folder) -> dict:
     start_counts = counts(kernels)
     with open(os.path.join(run, "kge.log")) as f:
         log = f.read()
-    if "KvsAll orders its batches in runs of up to 4" not in log:
-        fail("the KvsAll run did not regroup its batch order")
+    # its batches come in kge_tpu's regrouped order (runs of one query
+    # type and label width), each run of 4 a captured group
+    if "Capturing groups of 4 steps as CUDA graphs." not in log:
+        fail("the KvsAll run did not dispatch its batches in captured "
+             "groups")
     epochs = check_start("kvsall", run, start_counts, dict(
         rank_counts=VALID_LAUNCHES, shared_ce_loss=0,
         adagrad_row_update=0, sgd_row_update=0), 1)
@@ -2082,9 +2133,12 @@ def w5m_phase(kernels, seed, scratch) -> dict:
             os.makedirs(folder)
             shutil.copy(config_yaml, os.path.join(folder, "config.yaml"))
             os.replace(init, os.path.join(folder, "checkpoint_00000.pt"))
+            # the dense run would sample on the card by default: the
+            # host's draws on every run
             argv = ["resume", folder, "--train.max_epochs", "1",
                     "--valid.every", "0", "--train.trace_level", "batch",
-                    "--tpu.fused_negsamp_loss", "always", *flags]
+                    "--tpu.fused_negsamp_loss", "always",
+                    "--tpu.on_device_sampling", "never", *flags]
             reset_counts(kernels)
             base = fresh_device_memory()
             del saves[:]
@@ -2846,6 +2900,408 @@ def bf16_phase(kernels, seed, scratch, dataset_folder, tr) -> dict:
                 best=os.path.join(run, "checkpoint_best.pt"))
 
 
+# ----------------------------------------------------------------- device epoch
+
+# the main path's epoch: 66 groups of 4 steps (steps_per_dispatch at its
+# default) and a 2-step tail
+GROUP = 4
+GROUPS_PER_EPOCH = TRAIN_STEPS // GROUP
+# device_shared_sample on the card, by its statistics: draws at the
+# recipe's shape (num 128 over the 14,541 entities, default sharing, with
+# replacement), each for DRAW_ROWS positives
+DRAWS, DRAW_ROWS = 10000, 64
+# a chi-square statistic fails below this p-value (the draws are seeded)
+CHI2_P_MIN = 1e-3
+
+
+def distinct_count_pmf(draws: int, values: int) -> np.ndarray:
+    """P(d distinct values among ``draws`` uniform draws over ``values``),
+    d = 0..draws, by the occupancy recursion in float64."""
+    p = np.zeros(draws + 1)
+    p[0] = 1.0
+    for _ in range(draws):
+        d = np.arange(draws + 1)
+        moved = np.zeros_like(p)
+        moved[1:] = p[:-1] * (values - d[:-1]) / values
+        p = p * d / values + moved
+    return p
+
+
+def chi2_p(observed: np.ndarray, expected: np.ndarray) -> float:
+    """p-value of Pearson's chi-square, the bins with an expected count
+    below 5 merged into their neighbours (in order)."""
+    from scipy.stats import chi2
+
+    obs, exp = [], []
+    o_acc = e_acc = 0.0
+    for o, e in zip(observed, expected):
+        o_acc += o
+        e_acc += e
+        if e_acc >= 5:
+            obs.append(o_acc)
+            exp.append(e_acc)
+            o_acc = e_acc = 0.0
+    if e_acc and exp:
+        obs[-1] += o_acc
+        exp[-1] += e_acc
+    obs, exp = np.asarray(obs), np.asarray(exp)
+    stat = float(np.sum((obs - exp) ** 2 / exp))
+    return float(chi2.sf(stat, len(obs) - 1))
+
+
+def draw_statistics(seed, device) -> dict:
+    """DRAWS shared samples of device_shared_sample at the recipe's shape
+    on the card: the number of distinct negatives against its exact
+    distribution (chi-square, and the mean within 3 standard errors of
+    base_voc * (1 - (1 - 1/base_voc)^num)), the live uniques' ids against
+    the uniform (chi-square over the entities), the dropped positions of
+    the rows whose positive was not drawn against the uniform over
+    [0, nu] (chi-square), and every drawn positive dropped at its
+    position."""
+    from kge_tpu_torch.train.sampler import device_shared_sample
+
+    num, voc = NEGATIVES, FB15K237["entities"]
+    base_voc = voc - 1
+    gen = torch.Generator(device).manual_seed(seed)
+    pos_gen = torch.Generator(device).manual_seed(seed + 1)
+    nus = torch.empty(DRAWS, dtype=torch.int64, device=device)
+    id_counts = torch.zeros(voc, dtype=torch.int64, device=device)
+    drop_counts = torch.zeros(num + 1, dtype=torch.int64, device=device)
+    free_rows = torch.empty(DRAWS, dtype=torch.int64, device=device)
+    misdropped = torch.zeros((), dtype=torch.int64, device=device)
+    idx = torch.arange(num + 1, device=device)
+    t0 = time.perf_counter()
+    for i in range(DRAWS):
+        positives = torch.randint(0, voc, (DRAW_ROWS,), generator=pos_gen,
+                                  device=device)
+        unique, base, nu, drop = device_shared_sample(
+            gen, num, voc, False, True, positives)
+        # counted by index_add_ (no host sync a draw)
+        nus[i] = nu
+        live = idx < nu + 1
+        id_counts.index_add_(0, unique, live.to(torch.int64))
+        match = (unique[None, :] == positives[:, None]) & live[None, :]
+        hit = match.any(dim=1)
+        misdropped += torch.sum(hit & ~match.gather(1, drop[:, None])[:, 0])
+        drop_counts.index_add_(0, drop, (~hit).to(torch.int64))
+        free_rows[i] = torch.sum(~hit)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nus_h, free_h = nus.cpu().numpy(), free_rows.cpu().numpy()
+    pmf = distinct_count_pmf(num, base_voc)
+    nu_hist = np.bincount(nus_h, minlength=num + 1)
+    mean = float(np.sum(np.arange(num + 1) * pmf))
+    sd = math.sqrt(float(np.sum((np.arange(num + 1) - mean) ** 2 * pmf)))
+    want_mean = base_voc * (1 - (1 - 1 / base_voc) ** num)
+    ids = id_counts.cpu().numpy()
+    drops = drop_counts.cpu().numpy()
+    # the free rows of a draw drop uniformly over [0, nu]
+    expected_drops = np.zeros(num + 1)
+    for nu_value, rows in zip(nus_h, free_h):
+        expected_drops[:nu_value + 1] += rows / (nu_value + 1)
+    out = dict(
+        draws=DRAWS, rows_a_draw=DRAW_ROWS, seconds=seconds,
+        nu_mean=float(nus_h.mean()), nu_mean_expected=want_mean,
+        nu_mean_standard_errors=abs(float(nus_h.mean()) - want_mean)
+        / (sd / math.sqrt(DRAWS)),
+        nu_chi2_p=chi2_p(nu_hist, DRAWS * pmf),
+        unique_ids_chi2_p=chi2_p(ids, np.full(voc, ids.sum() / voc)),
+        drop_chi2_p=chi2_p(drops, expected_drops),
+        drawn_positives_not_dropped=int(misdropped))
+    print("device_shared_sample on the card: " + json.dumps(out), flush=True)
+    if out["nu_mean_standard_errors"] > 3:
+        fail(f"device draws: nu's mean is off: {out}")
+    if min(out["nu_chi2_p"], out["unique_ids_chi2_p"],
+           out["drop_chi2_p"]) < CHI2_P_MIN:
+        fail(f"device draws fail a chi-square test: {out}")
+    if out["drawn_positives_not_dropped"]:
+        fail(f"device draws: a drawn positive was not dropped: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def created_jobs(jobs: list, forward_only: bool = False):
+    """Appends every training job created inside to ``jobs`` (with
+    ``forward_only``, every forward-only one: a ``training_loss``
+    evaluation's)."""
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.train.train import TrainingJob
+
+    def record(job):
+        if (isinstance(job, TrainingJob)
+                and job.is_forward_only == forward_only):
+            jobs.append(job)
+
+    Job.job_created_hooks.append(record)
+    try:
+        yield jobs
+    finally:
+        Job.job_created_hooks.remove(record)
+
+
+def timed_dispatches(job, record: list):
+    """Wraps ``job``'s group dispatch: appends the host seconds of each
+    call (the inputs' upload, the replay's enqueue, the output's copy;
+    no synchronisation)."""
+    dispatch = job._dispatch_group
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = dispatch(*args, **kwargs)
+        record.append(time.perf_counter() - t0)
+        return out
+
+    job._dispatch_group = timed
+
+
+def table_arrays(checkpoint_file: str) -> dict:
+    from kge_tpu_torch.utils.io import load_checkpoint
+    from kge_tpu_torch.utils.params import tree_leaves, tree_paths
+
+    stored = load_checkpoint(checkpoint_file)
+    out = {}
+    for tree in ("model", "opt_state"):
+        for path, leaf in zip(tree_paths(stored[tree]),
+                              tree_leaves(stored[tree])):
+            out[f"{tree}/{path}"] = np.asarray(leaf)
+    return out
+
+
+def max_table_difference(a: dict, b: dict) -> float:
+    if set(a) != set(b):
+        fail(f"checkpoints hold different arrays: {sorted(set(a) ^ set(b))}")
+    return max(float(np.max(np.abs(a[k].astype(np.float64)
+                                   - b[k].astype(np.float64))))
+               if a[k].size else 0.0 for k in a)
+
+
+def device_epoch_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The main path of this slice: ``start`` of the train phase's config
+    at kge_tpu's defaults (on-device sampling, 4 steps a dispatch): the
+    negatives drawn on the card, the epoch's positives uploaded once, each
+    group of 4 steps one CUDA graph replay (the job's first group its
+    warm-up, eagerly), a 2-step eager tail; 2 epochs with a validation
+    after each, then ``resume`` to epoch 3. Beside it in this call: the
+    eager host-sampled path (``on_device_sampling never``,
+    ``steps_per_dispatch 1``), a 200-step window of the captured path
+    profiled, the host time of a dispatch and of a replay, peak memory.
+    Under ``torch.use_deterministic_algorithms`` (the embedding
+    gradients' ``index_add_`` otherwise sums in the atomics' order): the
+    captured run against the same run at ``steps_per_dispatch 1`` (epoch
+    losses and tables within 1e-6), and epoch 3 after ``resume`` bit for
+    bit a fresh 3-epoch run's. Then the draws' statistics."""
+    from kge_tpu_torch import cli
+
+    n_train = FB15K237["splits"]["train"]
+    config_file = os.path.join(scratch, "complex-device-epoch.yaml")
+    write_train_config(config_file, dataset_folder, seed,
+                       host_sampling=False)
+    run = os.path.join(scratch, "device-epoch-run")
+
+    jobs, dispatch_seconds = [], []
+    fresh_device_memory()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with created_jobs(jobs):
+        cli.main(["start", config_file, "--folder", run])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    launched = counts(kernels)
+    job = jobs[0]
+    with open(os.path.join(run, "kge.log")) as f:
+        log = f.read()
+    for line in ("Sampling negatives on device",
+                 f"Capturing groups of {GROUP} steps as CUDA graphs."):
+        if line not in log:
+            fail(f"device_epoch: the log does not say {line!r}")
+    epochs = check_start("device_epoch", run, launched, dict(
+        shared_ce_loss=2 * 2 * TRAIN_STEPS, rank_counts=2 * VALID_LAUNCHES,
+        adagrad_row_update=0, sgd_row_update=0), 2)
+    # the job's first group is the capture's warm-up: every other group
+    # of both epochs is a replay
+    want_replays = 2 * GROUPS_PER_EPOCH - 1
+    graphs = list(job._graphs)
+    if job.graph_replays != want_replays or graphs != [("epoch", GROUP)]:
+        fail(f"device_epoch: {job.graph_replays} replays of graphs {graphs}, "
+             f"expected {want_replays} of [('epoch', {GROUP})]")
+    if any(e["batches"] != TRAIN_STEPS for e in epochs):
+        fail("device_epoch: an epoch did not take every batch")
+
+    # host time of one replay's enqueue and device time of a replay, on
+    # the finished job (more steps of its model, no checkpoint)
+    entry = job._graphs[("epoch", GROUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        entry.graph.replay()
+    replay_host_us = (time.perf_counter() - t0) / 50 * 1e6
+    replay_ms = cuda_ms(entry.graph.replay, 50)
+    del job, jobs[:], entry
+
+    # resume to epoch 3
+    reset_counts(kernels)
+    with created_jobs(jobs):
+        resumed = cli.main(["resume", run, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resume_counts = counts(kernels)
+    expect_counts("the resumed device epoch", resume_counts, dict(
+        shared_ce_loss=2 * TRAIN_STEPS, rank_counts=VALID_LAUNCHES))
+    if resumed["epoch"] != 3 or jobs[0].graph_replays != GROUPS_PER_EPOCH - 1:
+        fail(f"device_epoch resume: epoch {resumed['epoch']}, "
+             f"{jobs[0].graph_replays} replays")
+    del jobs[:]
+
+    # a training_loss validation resolves on-device sampling as training
+    # does: a forward-only epoch of the valid split, drawn on the card, in
+    # captured groups (K1 forward only)
+    reset_counts(kernels)
+    with created_jobs(jobs, forward_only=True):
+        loss_entry = cli.main(["valid", run, "--eval.type", "training_loss"])
+    torch.cuda.synchronize()
+    loss_counts = counts(kernels)
+    valid_groups = math.ceil(FB15K237["splits"]["valid"] / TRAIN_BATCH) // GROUP
+    loss_out = dict(avg_loss=loss_entry["avg_loss"], launches=loss_counts,
+                    on_device=jobs[0]._on_device_sampling,
+                    graph_replays=jobs[0].graph_replays)
+    print("device_epoch training_loss valid: " + json.dumps(loss_out),
+          flush=True)
+    expect_counts("the on-device training_loss validation", loss_counts,
+                  dict(shared_ce_loss=TRAINING_LOSS_LAUNCHES, rank_counts=0))
+    if (not loss_out["on_device"] or loss_out["graph_replays"]
+            != valid_groups - 1 or not math.isfinite(loss_out["avg_loss"])):
+        fail(f"device_epoch training_loss validation: {loss_out}")
+    del jobs[:]
+
+    # the same epoch from checkpoint_00000.pt: captured (with the host
+    # time of each dispatch) and eager with the host's draws
+    paths = {}
+    for name, flags in (
+            ("captured", []),
+            ("eager_host_sampled", ["--tpu.on_device_sampling", "never",
+                                    "--tpu.steps_per_dispatch", "1"])):
+        folder = os.path.join(scratch, f"device-epoch-{name}")
+        copy_run(run, folder, "checkpoint_00000.pt")
+        record = []
+        from kge_tpu_torch.train.job import Job
+        hook = (lambda j: timed_dispatches(j, record)
+                if hasattr(j, "_dispatch_group") and not j.is_forward_only
+                else None)
+        Job.job_created_hooks.append(hook)
+        try:
+            entry = cli.main(["resume", folder, "--train.max_epochs", "1",
+                              "--valid.every", "0", *flags])
+        finally:
+            Job.job_created_hooks.remove(hook)
+        paths[name] = dict(
+            epoch_seconds=entry["epoch_time"],
+            ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
+            triples_per_s=n_train / entry["epoch_time"],
+            avg_loss=entry["avg_loss"],
+            dispatch_host_us=(1e6 * statistics.median(record[1:])
+                              if len(record) > 1 else None))
+        shutil.rmtree(folder)
+    print("device_epoch paths in this call: " + json.dumps(paths), flush=True)
+
+    # a 200-step window of the captured path, its epoch 2 (epoch 1 holds
+    # the warm-up and the capture), under torch.profiler
+    folder = os.path.join(scratch, "device-epoch-profiled")
+    copy_run(run, folder, "checkpoint_00000.pt")
+    from kge_tpu_torch.train.job import Job
+
+    def window(job):
+        payload = getattr(job, "_epoch_device_payload", None)
+        if payload is not None:
+            job._epoch_device_payload = lambda epoch: {
+                k: v[:PROFILE_STEPS] for k, v in payload(epoch).items()}
+
+    Job.job_created_hooks.append(window)
+    try:
+        base = fresh_device_memory()
+        profiled, device = profile_run(
+            "train device_epoch", "train.", lambda: cli.main([
+                "resume", folder, "--train.max_epochs", "2",
+                "--valid.every", "0"]), epoch_only=True, epoch=2)
+    finally:
+        Job.job_created_hooks.remove(window)
+    device_ms = sum(ms for ms, _ in device.values())
+    window_out = {
+        "batches": profiled["batches"],
+        "ms_per_step": 1e3 * profiled["epoch_time"] / profiled["batches"],
+        "triples_per_s": profiled["batches"] * TRAIN_BATCH
+        / profiled["epoch_time"],
+        "device_busy_share": device_ms / (1e3 * profiled["epoch_time"]),
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_device_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "device_memory_before_bytes": base}
+    print("train device_epoch profiled window: " + json.dumps(window_out),
+          flush=True)
+    shutil.rmtree(folder)
+
+    # captured vs per-batch steps and resume vs uninterrupted, bit for bit
+    # where the math is the same: deterministic kernels
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = {}
+        for name, argv, epochs_run in (
+                ("fresh3", ["--train.max_epochs", "3"], 3),
+                ("start2", ["--train.max_epochs", "2"], 2),
+                ("per_batch2", ["--train.max_epochs", "2",
+                                "--tpu.steps_per_dispatch", "1"], 2)):
+            folder = os.path.join(scratch, f"device-epoch-{name}")
+            cli.main(["start", config_file, "--folder", folder,
+                      "--valid.every", "0", *argv])
+            det[name] = folder
+        # before the resume, whose checkpoint rotation drops epoch 2's
+        table_difference = max_table_difference(
+            table_arrays(os.path.join(det["start2"], "checkpoint_00002.pt")),
+            table_arrays(os.path.join(det["per_batch2"],
+                                      "checkpoint_00002.pt")))
+        cli.main(["resume", det["start2"], "--train.max_epochs", "3"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def epoch_losses(folder):
+        return [e["avg_loss"] for e in read_trace(
+            folder, event="epoch_completed", job="train")]
+
+    captured, per_batch = epoch_losses(det["start2"]), epoch_losses(
+        det["per_batch2"])
+    loss_difference = max(relative(a, b) for a, b in zip(
+        captured[:2], per_batch))
+    fresh = epoch_losses(det["fresh3"])
+    resume_difference = max_table_difference(
+        table_arrays(os.path.join(det["start2"], "checkpoint_00003.pt")),
+        table_arrays(os.path.join(det["fresh3"], "checkpoint_00003.pt")))
+    checks = dict(
+        captured_vs_per_batch_loss_relative=loss_difference,
+        captured_vs_per_batch_table_max_abs=table_difference,
+        resumed_epoch3_loss=captured[2], fresh_epoch3_loss=fresh[2],
+        resumed_vs_fresh_table_max_abs=resume_difference)
+    print("device_epoch deterministic checks: " + json.dumps(checks),
+          flush=True)
+    if loss_difference > 1e-6 or table_difference > 1e-6:
+        fail(f"device_epoch: captured vs per-batch steps: {checks}")
+    if captured[2] != fresh[2] or resume_difference != 0.0:
+        fail(f"device_epoch: resumed epoch 3 is not the fresh run's: "
+             f"{checks}")
+    for folder in det.values():
+        shutil.rmtree(folder)
+
+    draws = draw_statistics(seed, torch.device("cuda"))
+    print("train device_epoch start on the card: " + json.dumps(dict(
+        seconds_cli=seconds, graph_replays=want_replays,
+        peak_device_memory_bytes=peak,
+        peak_device_memory_reserved_bytes=peak_reserved,
+        replay_host_us=replay_host_us, replay_device_ms=replay_ms,
+        k1_launches_per_step=launched["shared_ce_loss"]
+        / sum(e["batches"] for e in epochs))), flush=True)
+    return dict(counts=launched, resume_counts=resume_counts,
+                training_loss_counts=loss_counts, paths=paths,
+                window=window_out, checks=checks, draws=draws)
+
+
 UTILS_SCRIPT = r"""
 import contextlib, io, json, os, sys, time
 import numpy as np
@@ -3188,9 +3644,9 @@ def search_phase(kernels, seed, scratch, dataset_folder) -> dict:
 
 
 PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
-          "compgcn", "rgnn_encoders", "conve", "scorers", "train", "sgd",
-          "bf16", "utils", "pair_ranking", "search", "kvsall", "1vsall",
-          "triple", "wikidata5m")
+          "compgcn", "rgnn_encoders", "conve", "scorers", "train",
+          "device_epoch", "sgd", "bf16", "utils", "pair_ranking", "search",
+          "kvsall", "1vsall", "triple", "wikidata5m")
 
 
 def main():
@@ -3276,6 +3732,8 @@ def main():
         run("conve", conve_phase, kernels, args.seed, scratch, graph)
         run("scorers", scorers_phase, kernels, args.seed, scratch, graph)
         tr = run("train", train_phase, kernels, args.seed, scratch, graph)
+        run("device_epoch", device_epoch_phase, kernels, args.seed, scratch,
+            graph)
         if tr is not None:
             run("sgd", sgd_phase, kernels, scratch, tr["config_file"])
         bf = run("bf16", bf16_phase, kernels, args.seed, scratch, graph, tr)
@@ -3307,6 +3765,7 @@ def main():
     kv, one, tri = results["kvsall"], results["1vsall"], results["triple"]
     w5m, conve = results["wikidata5m"], results["conve"]
     bf, search = results["bf16"], results["search"]
+    de = results["device_epoch"]
 
     # each kernel's launches in every run that drives a path, the counts
     # set to 0 before the run and read after it
@@ -3325,6 +3784,8 @@ def main():
         "kvsall_resume": kv["resume"], "1vsall": one["start"],
         "triple_sparse": tri["start"], "wikidata5m": w5m["counts"],
         "wikidata5m_valid": w5m["valid_counts"],
+        "device_epoch": de["counts"], "device_epoch_resume": de["resume_counts"],
+        "device_epoch_training_loss": de["training_loss_counts"],
         "bf16": bf["counts"], "bf16_training_loss": bf["training_loss_counts"],
         "utils_pretrained": results["utils"]["counts"],
         "pair_ranking": results["pair_ranking"]["counts"],
@@ -3339,7 +3800,7 @@ def main():
         name="rank_counts", route="cuda",
         source="kge_tpu_torch/csrc/rank_count.cu",
         replaces="kge_tpu/ops/pallas/rank_count.py:42",
-        launches=bf["counts"]["rank_counts"],
+        launches=de["counts"]["rank_counts"],
         max_abs_err=max(k2["max_abs_err"], *(
             w["max_abs_err"] for w in results["k2_widths"])),
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
@@ -3352,7 +3813,7 @@ def main():
         name="shared_ce_loss", route="cuda",
         source="kge_tpu_torch/csrc/negsamp_loss.cu",
         replaces="kge_tpu/ops/pallas/negsamp_loss.py:44",
-        launches=bf["counts"]["shared_ce_loss"],
+        launches=de["counts"]["shared_ce_loss"],
         max_abs_err=k1["max_abs_err"],
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],

@@ -3,7 +3,10 @@
 kge/job/eval_training_loss.py): a forward-only epoch of the configured
 training strategy over the evaluation split, whose ``avg_loss`` is the
 evaluation's metric. Under shared negative sampling with the fused loss
-every step launches K1 (``ops/negsamp_loss.py``) without its backward."""
+every step launches K1 (``ops/negsamp_loss.py``) without its backward;
+the forward-only trainer resolves ``tpu.on_device_sampling`` as a training
+job does, so it draws its negatives on the device where one would, and
+its groups of steps dispatch as a training job's do."""
 
 from __future__ import annotations
 

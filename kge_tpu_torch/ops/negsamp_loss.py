@@ -20,26 +20,37 @@ the autograd function casts its operands to float32 before the kernel
 (as ``kge_tpu``'s ``_forward`` does before its ``pallas_call``), and its
 backward computes in float32 and returns each gradient in its operand's
 dtype (``_bwd``).
+
+A CUDA graph can capture the wrapper and its backward: the output comes
+from the current allocator (the graph's pool under capture), the launch
+and the C entry's memset of the last-block ticket go to the current
+stream (the capture stream), so a replay zeroes the ticket before the
+kernel as a call does; the kernel's shared-memory attribute is set at
+its first call on a device, which the trainer's warm-up makes before it
+captures. ``launches`` counts calls, and a replay makes none: the
+trainer adds a graph's captured launches to it on every replay.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from kge_tpu_torch.ops import native
 
 
-def expand_counts(base: torch.Tensor, nu: int, drop: Optional[torch.Tensor],
-                  rows: int) -> torch.Tensor:
+def expand_counts(base: torch.Tensor, nu: Union[int, torch.Tensor],
+                  drop: Optional[torch.Tensor], rows: int) -> torch.Tensor:
     """[rows, num+1] candidate multiplicities from the shared sample's
     factors: the base multiplicities [num+1], the number of unique
-    candidates ``nu`` and, for ``default`` sharing, each row's dropped
-    position [rows] (its mass moves to the extra candidate at ``nu``).
-    Vector ops on the device, no scatter. KEEP IN LOCKSTEP with
+    candidates ``nu`` (an int, or a 0-d tensor on ``base``'s device, as
+    on-device sampling draws it) and, for ``default`` sharing, each row's
+    dropped position [rows] (its mass moves to the extra candidate at
+    ``nu``). Vector ops on the device, no scatter and no host sync, so a
+    CUDA graph can capture it. KEEP IN LOCKSTEP with
     ``kge_tpu_torch.train.sampler.BatchNegativeSample.counts`` (numpy)
     and ``kge_tpu``'s ``_fused_loss``."""
     num1 = base.shape[-1]

@@ -23,6 +23,12 @@ written out in torch and applied in place:
 - SGD: ``u = g``, or with ``momentum`` (``trace``) ``t = g + m t`` and
   ``u = t`` (``u = g + m t`` with ``nesterov``).
 
+The dense step is written so that a CUDA graph can capture it: no
+host sync and no value read on the host. Learning rates may be 0-d
+device tensors (the training job fills them before each epoch), and the
+Adam family's bias corrections arrive as a device tensor that the host
+computed (``advance``), since the step count lives on the host.
+
 ``weight_decay`` adds ``wd * p`` to ``g`` before the preconditioner for
 every type but AdamW, which adds ``(wd or 1e-2) * p`` to ``u`` after it;
 then ``p -= lr * u``. The state is ``{slot: {parameter name: tensor}}``
@@ -50,6 +56,7 @@ import torch
 
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.ops.row_update import row_update_groups
+from kge_tpu_torch.utils.misc import to_device
 from kge_tpu_torch.utils.params import nest, tree_leaves
 
 #: per-parameter state slots of each optimizer type, in optax's order
@@ -186,21 +193,40 @@ class KgeOptimizer:
                               for g in self.group_names}
         return state
 
+    def advance(self, state: Dict[str, Dict[str, torch.Tensor]],
+                steps: int) -> Optional[np.ndarray]:
+        """Advance the Adam family's step counts by ``steps`` and return
+        the bias corrections ``(1 - b1**count, 1 - b2**count)`` of those
+        steps, float32 [steps, groups, 2] in ``group_names`` order (None
+        for the other types). The host computes them, as optax does in
+        float32, for a group of steps before it dispatches them."""
+        if self.opt_type not in COUNTED:
+            return None
+        out = np.empty((steps, len(self.group_names), 2), dtype=np.float32)
+        for j, group in enumerate(self.group_names):
+            count = state["count"][group]
+            value = int(count)
+            betas = _betas(self._group_args[group])
+            for i in range(steps):
+                value = min(value + 1, INT32_MAX)
+                out[i, j] = [_bias_correction(b, value) for b in betas]
+            count.fill_(value)
+        return out
+
     @torch.no_grad()
     def step(self, state: Dict[str, Dict[str, torch.Tensor]],
-             lrs: Dict[str, float]):
+             lrs: Mapping[str, Any],
+             corrections: Optional[torch.Tensor] = None):
         """One dense update, in place, of every parameter outside
         ``sparse_paths`` from its ``.grad`` (a parameter without one
-        counts as a zero gradient)."""
-        # the Adam family's bias corrections (1 - b1**count, 1 - b2**count),
-        # once a group
-        corrections = {}
-        if self.opt_type in COUNTED:
-            for group, count in state["count"].items():
-                count.fill_(min(int(count) + 1, INT32_MAX))
-                corrections[group] = tuple(
-                    _bias_correction(b, int(count))
-                    for b in _betas(self._group_args[group]))
+        counts as a zero gradient). ``lrs`` maps each group to its
+        learning rate, a float or a 0-d tensor on the parameters' device;
+        ``corrections`` is this step's row of ``advance`` on that device
+        (the Adam family; by default the step advances the counts
+        itself)."""
+        if self.opt_type in COUNTED and corrections is None:
+            device = next(iter(self.params.values())).device
+            corrections = to_device(self.advance(state, 1)[0], device)
         for name, p in self.params.items():
             if name in self.sparse_paths:
                 continue
@@ -210,8 +236,9 @@ class KgeOptimizer:
             weight_decay = float(args.get("weight_decay", 0.0))
             if weight_decay and self.opt_type != "adamw":
                 g = g + weight_decay * p
-            u = self._precondition(name, g, state, args,
-                                   corrections.get(group))
+            u = self._precondition(
+                name, g, state, args, None if corrections is None
+                else corrections[self.group_names.index(group)])
             if self.opt_type == "adamw":
                 u = u + (weight_decay or 1e-2) * p
             p.sub_(lrs[group] * u)
@@ -219,10 +246,10 @@ class KgeOptimizer:
     def _precondition(self, name: str, g: torch.Tensor,
                       state: Dict[str, Dict[str, torch.Tensor]],
                       args: Dict[str, Any],
-                      correction: Optional[Tuple[float, float]]
+                      correction: Optional[torch.Tensor]
                       ) -> torch.Tensor:
         """The lr-free update of one parameter; advances its state.
-        ``correction`` is its group's Adam bias corrections."""
+        ``correction`` is its group's Adam bias corrections [2]."""
         kind = self.opt_type
         if kind == "adagrad":
             acc = state["sum"][name]

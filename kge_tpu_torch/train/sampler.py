@@ -12,8 +12,11 @@ batches in both packages. Batches keep ``kge_tpu``'s fixed-shape layout:
   (``counts``, what the fused loss consumes).
 
 The uniform sampler (shared and not shared), the frequency sampler (not
-shared) and the filtering of known positives are here; on-device
-sampling (``kge_tpu``'s ``device_shared_sample``) is not.
+shared) and the filtering of known positives are here, and
+``device_shared_sample``: uniform shared sampling drawn on the device in
+the factored form (``tpu.on_device_sampling``), from a
+``torch.Generator``. The torch and JAX PRNG streams differ, so its draws
+are held to ``kge_tpu``'s by their distribution.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.dataset import Dataset
@@ -114,6 +118,81 @@ class BatchNegativeSample:
         if self._negatives is not None:
             return self._negatives
         return self.unique[self.gather]
+
+
+def _below(bound: torch.Tensor, n: int,
+           generator: torch.Generator) -> torch.Tensor:
+    """``n`` uniform integers in ``[0, bound)`` for a 0-d device ``bound``
+    >= 1, without a host sync: 62 uniform bits reduced modulo the bound
+    (``torch.randint`` takes Python bounds only). The modulo bias is
+    below bound / 2^62."""
+    bits = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=bound.device)
+    return torch.remainder(bits, bound)
+
+
+def device_shared_sample(generator: torch.Generator, num: int, voc: int,
+                         naive: bool, with_replacement: bool,
+                         positives: torch.Tensor):
+    """Uniform shared sampling on the device, line for line ``kge_tpu``'s
+    ``device_shared_sample`` (``kge_tpu/train/sampler.py:143-205``), in the
+    factored form the fused loss reads: ``(unique [num+1] int64, base
+    [num+1] float32, nu 0-d int64, drop [B] int64 or None)``, static
+    shapes and no host sync, drawn from ``generator`` on ``positives``'
+    device:
+
+    - with replacement, ``nu`` is the number of distinct values in
+      ``num`` draws over the base vocabulary (sorted, neighbours that
+      differ counted); without, ``num``;
+    - the uniques are the top ``num + 1`` of ``voc`` uniform int32 keys
+      (an ordered sample without replacement), the first ``take`` of them
+      kept (``nu``, plus the extra candidate of ``default`` sharing);
+      positions at and past ``take`` repeat ``unique[0]``;
+    - ``base`` is 1 on the ``nu`` live columns plus the ``num - nu``
+      repeats, each uniform over them (a masked full-size draw: masked
+      adds are zero);
+    - ``drop`` (``default`` sharing) is uniform over ``[0, nu]``,
+      overridden to the positive's position where the positive was drawn.
+
+    Draws, in order: the distinct-count draw, the keys, the repeats, the
+    drops. Requires voc >= num + 1. KEEP IN LOCKSTEP with
+    ``KgeUniformSampler._sample_shared`` and ``count_factors``."""
+    device = positives.device
+    base_voc = voc if naive else voc - 1
+    if with_replacement:
+        d = torch.randint(0, base_voc, (num,), generator=generator,
+                          device=device)
+        ds = torch.sort(d).values
+        nu = 1 + torch.sum(ds[1:] != ds[:-1])
+    else:
+        nu = torch.full((), num, dtype=torch.int64, device=device)
+    take = nu if naive else nu + 1
+    # int32 keys rather than float uniforms: float32 has 2^24 values, so
+    # a large vocabulary ties often and top-k's tie order would bias the
+    # boundary slot toward some ids
+    keys = torch.randint(-2 ** 31, 2 ** 31, (voc,), generator=generator,
+                         device=device, dtype=torch.int32)
+    top = torch.topk(keys, num + 1).indices
+    idx = torch.arange(num + 1, device=device)
+    unique = torch.where(idx < take, top, top[0])
+    base = (idx < nu).to(torch.float32)
+    if with_replacement:
+        rep = _below(torch.clamp(nu, min=1), num, generator)
+        rep_mask = (torch.arange(num, device=device) < num - nu).to(
+            torch.float32)
+        # the repeats' counts as a [num, num+1] one-hot sum: exact (0/1
+        # adds) and free of atomics, so deterministic on a card
+        base = base + torch.sum(
+            rep_mask[:, None] * (rep[:, None] == idx[None, :]), dim=0)
+    drop = None
+    if not naive:
+        drop0 = _below(nu + 1, positives.shape[0], generator)
+        match = ((unique[None, :] == positives[:, None])
+                 & (idx < take)[None, :])
+        hit = torch.any(match, dim=1)
+        hit_pos = torch.argmax(match.to(torch.int32), dim=1)
+        drop = torch.where(hit, hit_pos, drop0)
+    return unique, base, nu, drop
 
 
 class KgeSampler(Configurable):

@@ -24,29 +24,48 @@ come back in one transfer when the epoch ends (NaN checks included).
 ``torch.profiler.record_function`` spans (``train.collate``,
 ``train.upload``, ``train.forward``, ``train.backward``,
 ``train.optimizer``, ``train.fetch``) name the phases a profile reads;
-they cost nothing without a profiler.
+they cost nothing without a profiler. ``tpu.profile_dir`` traces epoch 1
+with ``torch.profiler`` and writes a Chrome trace into that folder.
 
-``tpu.steps_per_dispatch`` (``_steps_per_dispatch``, as in ``kge_tpu``)
-decides no dispatch here: the port runs one step a batch. It still
-orders KvsAll's batches, which ``kge_tpu`` regroups into runs of one
-compiled shape; the port draws the same order.
+Grouped dispatch (``tpu.steps_per_dispatch``, as ``kge_tpu``'s
+``_run_epoch_inner``): batches of one structure (``signature``) are
+taken in groups of k; a shorter tail runs batch by batch. A strategy
+whose whole epoch is a small payload (on-device negative sampling:
+``_epoch_device_payload``) uploads it once, and each group then reads
+its batches from it at a start index (``_expand_device_batch`` draws the
+rest on the device). On a card a group of k steps is captured once per
+(signature, k) into a ``torch.cuda.CUDAGraph`` and replayed: the first
+group of a job runs eagerly on the capture stream (its warm-up: autograd,
+the cuBLAS workspace of that stream, the kernels' attributes), the next
+ones replay the graph after their inputs were copied into its buffers.
+Learning rates are device tensors filled before each epoch, the Adam
+family's bias corrections go up with each group, the sampling generator
+is registered with each graph (replays draw what the eager steps would),
+and the kernel launch counters gain a graph's captured launches on each
+replay. ``_capture_unsupported_reasons`` is the predicate that keeps a
+job's groups eager (logged once): dropout, whose generator the host
+reseeds every step; model state carried between steps (batch-norm
+statistics, an R-GNN encoder's graph); graph sampling; row-sparse steps.
+Such groups, and every group on the CPU, run their k steps eagerly with
+the same math. A capture or replay that fails raises. ``_prefetch`` runs
+the batch generator in a producer thread (``tpu.prefetch_batches``,
+``train.num_workers``); its draws and order are the serial loop's.
 
 Under ``tpu.compute_dtype: bfloat16`` the embedders hand the scorers
 bf16 embeddings in training (``LookupEmbedder._cast``); parameters,
 gradients and optimizer state stay float32, and every loss casts its
 scores to float32 first (``loss._Float32Loss``), as in ``kge_tpu``.
 
-Not ported here: meshes and multi-host runs, grouped and device-resident
-dispatch, the prefetch thread, row chunking and ``tpu.profile_dir``.
+Not ported here: meshes and multi-host runs, and row chunking.
 """
 
 from __future__ import annotations
 
-import hashlib
+import contextlib
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,21 +74,105 @@ from torch.profiler import record_function
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models import Ctx, KgeModel
+from kge_tpu_torch.ops.negsamp_loss import shared_ce_loss
 from kge_tpu_torch.train.job import Job, TrainingOrEvaluationJob
 from kge_tpu_torch.train.loss import KgeLoss
 from kge_tpu_torch.train.optimizer import KgeLRScheduler, KgeOptimizer
 from kge_tpu_torch.utils.io import save_checkpoint
 from kge_tpu_torch.utils.metric import Metric
-from kge_tpu_torch.utils.misc import init_from, resolve_device
+from kge_tpu_torch.utils.misc import init_from, resolve_device, to_device
 from kge_tpu_torch.utils.seed import (
-    rng_seed_from_config, torch_generator_from_config
+    derived_seed, rng_seed_from_config, torch_generator_from_config
 )
 from kge_tpu_torch.utils.trace import format_trace_entry
 
+#: the counted kernel wrappers a captured step can call (``launches``;
+#: row-sparse steps, K3's, are not captured): a graph replay adds the
+#: launches its capture recorded
+COUNTED_KERNELS = (shared_ce_loss,)
 
-def _refuse_unported(config: Config):
+
+def _prefetch(gen, depth: int):
+    """Run a batch generator in a producer thread so host collate
+    (sampling, label coordinates) overlaps the device's work (``kge_tpu``'s
+    ``_prefetch``). Single producer, single consumer: the order and the
+    generators' draws are the serial loop's."""
+    if depth <= 0:
+        yield from gen
+        return
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+    errors = []
+
+    def put(item) -> bool:
+        """Bounded put that gives up once the consumer is gone (an
+        abandoned epoch must not leave this thread blocked for ever)."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+        except BaseException as e:  # re-raised on the consumer side
+            errors.append(e)
+        finally:
+            put(sentinel)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if errors:
+                    raise errors[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        try:  # unblock a producer mid-put
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        thread.join()
+
+
+def _uses_dropout(model: torch.nn.Module) -> bool:
+    """Whether a module of ``model`` has a dropout rate above 0 (an
+    attribute whose name holds ``dropout``: an embedder's
+    ``dropout_rate``, ConvE's ``feature_map_dropout``, ...)."""
+    return any(
+        isinstance(v, (int, float)) and not isinstance(v, bool) and v > 0
+        for m in model.modules() for name, v in vars(m).items()
+        if "dropout" in name)
+
+
+class _Graph(NamedTuple):
+    """One captured group: the graph, the buffers its inputs are copied
+    into before a replay, its metric names and output, and the kernel
+    launches it holds."""
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    names: List[str]
+    out: torch.Tensor
+    launches: List[Tuple[Any, int]]
+
+
+def _check_tpu_options(config: Config):
     """Raise on the ``tpu`` options whose paths are not ported; log the
-    ones that change only how ``kge_tpu`` dispatches."""
+    ones that change nothing here."""
     if max(config.get("tpu.mesh.data"), config.get("tpu.mesh.model")) > 1:
         raise NotImplementedError(
             "tpu.mesh (multi-device training) is not yet ported to "
@@ -79,23 +182,6 @@ def _refuse_unported(config: Config):
         raise NotImplementedError(
             "tpu.multihost is not yet ported to kge_tpu_torch")
     config.check("tpu.compute_dtype", ["float32", "bfloat16"])
-    if config.get("tpu.profile_dir"):
-        raise NotImplementedError(
-            "tpu.profile_dir is not yet ported to kge_tpu_torch (profile "
-            "with torch.profiler around the job)")
-    depth = int(config.get("tpu.prefetch_batches"))
-    if depth < 0:
-        depth = min(2 * int(config.get("train.num_workers")), 8)
-    if depth > 0:
-        raise NotImplementedError(
-            "batch prefetching (tpu.prefetch_batches, train.num_workers) is "
-            "not yet ported to kge_tpu_torch")
-    group = int(config.get("tpu.steps_per_dispatch"))
-    if group > 1:
-        config.log(f"tpu.steps_per_dispatch {group}: kge_tpu_torch runs one "
-                   "step a batch in every trainer; KvsAll orders its batches "
-                   f"in runs of up to {group} of one query type and label "
-                   "width, as kge_tpu does")
     precision = config.check("tpu.matmul_precision",
                              ["default", "high", "highest"])
     if precision != "highest":
@@ -110,14 +196,25 @@ class TrainingJob(TrainingOrEvaluationJob):
                  model: Optional[KgeModel] = None, forward_only: bool = False):
         super().__init__(config, dataset, parent_job)
         self.device = resolve_device(config)
-        _refuse_unported(config)
+        _check_tpu_options(config)
         # full float32, the counterpart of tpu.matmul_precision: highest
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.generator = torch_generator_from_config(config, self.device)
         #: dropout's generator, reseeded per subbatch (``_dropout_generator``)
         self._dropout_gen = torch_generator_from_config(config, self.device)
+        #: the generator of draws made on the device (negatives), reseeded
+        #: per epoch (``_seed_sampling``)
+        self._sampling_gen = torch_generator_from_config(config, self.device)
         self._torch_seed = rng_seed_from_config(config, "torch")
+        #: captured groups by (signature, k) and their replays so far
+        self._graphs: Dict[Any, _Graph] = {}
+        self.graph_replays = 0
+        self._capture: Optional[bool] = None  # decided at the first group
+        self._capture_stream = None
+        self._lr_buffer: Optional[torch.Tensor] = None
+        self._resident: Optional[Dict[str, torch.Tensor]] = None
+        self._prepare_time = 0.0
         if model is None:
             model = KgeModel.create(config, dataset, device=self.device,
                                     generator=self.generator)
@@ -208,12 +305,84 @@ class TrainingJob(TrainingOrEvaluationJob):
         ``random_seed.torch``, the epoch, the step and the part, so a
         resumed run draws the uninterrupted run's masks; an unseeded job
         draws from one stream."""
-        if self._torch_seed >= 0:
-            key = f"{self._torch_seed}/{self.epoch}/{step}/{part}".encode()
-            digest = hashlib.blake2b(key, digest_size=8).digest()
+        # a captured step draws no dropout (_capture_unsupported_reasons),
+        # and a CUDA generator cannot be reseeded while a graph is captured
+        capturing = (self.device.type == "cuda"
+                     and torch.cuda.is_current_stream_capturing())
+        if self._torch_seed >= 0 and not capturing:
             self._dropout_gen.manual_seed(
-                int.from_bytes(digest, "little") >> 1)
+                derived_seed(self._torch_seed, self.epoch, step, part))
         return self._dropout_gen
+
+    def _seed_sampling(self, epoch: int):
+        """Reseed the generator of the device's draws for ``epoch`` from
+        ``random_seed.torch``, so a resumed run draws the uninterrupted
+        run's from epoch k on; an unseeded job keeps one stream."""
+        if self._torch_seed >= 0:
+            self._sampling_gen.manual_seed(
+                derived_seed(self._torch_seed, epoch, "sampling"))
+
+    def _expand_device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Strategy hook: the batch's content made on the device from a
+        small payload (on-device negative sampling), at the start of its
+        step, so every subbatch sees one draw. Default: the payload is
+        the batch."""
+        return batch
+
+    def _epoch_device_payload(self, epoch: int
+                              ) -> Optional[Dict[str, np.ndarray]]:
+        """Strategy hook: the whole epoch as one stacked host payload
+        ``{key: [M, ...]}`` (M batches), uploaded once for device-resident
+        grouped dispatch, or None where each batch is collated on the
+        host."""
+        return None
+
+    def _stack_group_batches(self, buffered: List[Dict[str, np.ndarray]]
+                             ) -> Dict[str, np.ndarray]:
+        """k host batches of one structure stacked on a leading k axis."""
+        return {key: np.stack([b[key] for b in buffered])
+                for key in buffered[0]}
+
+    def _capture_unsupported_reasons(self) -> List[str]:
+        """Why this job's groups of steps cannot be captured into CUDA
+        graphs as they stand (empty when they can). A graph replays fixed
+        device work on fixed buffers, so a step must not depend on the
+        host between steps: no generator the host reseeds every step, no
+        state handed from step to step in Python, no host payload of
+        another shape."""
+        reasons = []
+        if _uses_dropout(self.model):
+            reasons.append("dropout draws its masks from a generator the "
+                           "host reseeds every step")
+        if self.model.model_state:
+            reasons.append("the model carries state between steps "
+                           "(batch-norm statistics)")
+        if hasattr(self.model, "set_graph"):
+            reasons.append("an R-GNN encoder keeps its graph and its "
+                           "output between calls")
+        if self._sparse_paths:
+            reasons.append("row-sparse steps update rows the host chose, "
+                           "at learning rates passed by value")
+        return reasons
+
+    def _captures(self) -> bool:
+        """Whether groups of steps run as CUDA graphs: on a card, when
+        ``_capture_unsupported_reasons`` finds nothing (decided once,
+        logged)."""
+        if self._capture is None:
+            self._capture = self.device.type == "cuda"
+            if self._capture:
+                reasons = self._capture_unsupported_reasons()
+                if reasons:
+                    self._capture = False
+                    self.config.log(
+                        "Running grouped steps eagerly, not as CUDA graphs: "
+                        + "; ".join(reasons))
+                else:
+                    self.config.log(
+                        "Capturing groups of "
+                        f"{self._steps_per_dispatch()} steps as CUDA graphs.")
+        return self._capture
 
     def _part_context(self, ctx: Ctx, step: int, part: int) -> Ctx:
         """A fresh training Ctx for one part of a step: the step's state
@@ -266,10 +435,18 @@ class TrainingJob(TrainingOrEvaluationJob):
         sub = self.subbatch_size if self.subbatch_size > 0 else size
         return [slice(i, min(i + sub, size)) for i in range(0, size, sub)]
 
-    def _step(self, batch: Dict[str, Any], lrs: Dict[str, float],
-              step: int = 0) -> Dict[str, Any]:
+    def _step(self, batch: Dict[str, Any], lrs: Dict[str, Any],
+              step: int = 0,
+              correction: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
         """One train step (the epoch's ``step``-th) on an uploaded batch;
-        returns its metrics as device tensors (no host sync)."""
+        returns its metrics as 0-d device tensors (no host sync).
+        ``lrs``: each group's learning rate (a float or a 0-d device
+        tensor); ``correction``: this step's Adam bias corrections on the
+        device (``KgeOptimizer.advance``; by default the optimizer
+        advances its counts itself)."""
+        with record_function("train.forward"):
+            batch = self._expand_device_batch(batch)
         slices = self._subbatch_slices()
         if self.is_forward_only:
             ctx, _ = self._step_context(batch)
@@ -278,7 +455,8 @@ class TrainingJob(TrainingOrEvaluationJob):
                     self._subbatch_loss(self._part_context(ctx, step, i),
                                         batch, sl)
                     for i, sl in enumerate(slices))
-            return {"avg_loss": total, "avg_penalty": 0.0, "avg_cost": total}
+            return {"avg_loss": total, "avg_penalty": torch.zeros_like(total),
+                    "avg_cost": total}
 
         params = list(self.model.parameters())
         for p in params:
@@ -305,7 +483,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                 self._part_context(ctx, step, -1),
                 batch=self._penalty_batch(batch)
             )
-            penalty_total = 0.0
+            penalty_total = torch.zeros((), device=self.device)
             for _, v in terms:
                 penalty_total = penalty_total + v
         if terms:
@@ -313,7 +491,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                 penalty_total.backward()
             penalty_total = penalty_total.detach()
         with record_function("train.optimizer"):
-            self.optimizer.step(self.opt_state, lrs)
+            self.optimizer.step(self.opt_state, lrs, correction)
             # every sparse table of the step in one call: one launch of
             # the row-update kernel on a card
             if rows:
@@ -330,6 +508,91 @@ class TrainingJob(TrainingOrEvaluationJob):
             "avg_cost": total_loss + penalty_total,
             **{f"avg_penalty_{k}": v.detach() for k, v in terms},
         }
+
+    def _group_steps(self, k: int, lrs: Dict[str, Any],
+                     resident: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Callable:
+        """The k steps of one group as ``run(inputs, first)``: step i reads
+        its batch from ``inputs`` (host batches stacked on a leading k
+        axis) or, with a ``resident`` epoch payload, from its row
+        ``inputs["_start"] + i``, and its Adam bias corrections from
+        ``inputs["_corrections"][i]``; returns the metric names and their
+        values [k, n]. The math is k per-batch steps'."""
+        def run(inputs: Dict[str, torch.Tensor], first: int):
+            corrections = inputs.get("_corrections")
+            names, rows = [], []
+            for i in range(k):
+                if resident is None:
+                    batch = {key: v[i] for key, v in inputs.items()
+                             if not key.startswith("_")}
+                else:
+                    at = inputs["_start"] + i
+                    batch = {key: v.index_select(0, at).squeeze(0)
+                             for key, v in resident.items()}
+                metrics = self._step(
+                    batch, lrs, first + i,
+                    None if corrections is None else corrections[i])
+                names = list(metrics)
+                rows.append(torch.stack([metrics[n] for n in names]))
+            return names, torch.stack(rows)
+        return run
+
+    def _dispatch_group(self, key, host: Dict[str, np.ndarray],
+                        run: Callable, first: int
+                        ) -> Tuple[List[str], torch.Tensor]:
+        """One group of steps: eagerly (on the CPU, or where
+        ``_captures`` says no), else by replaying its captured graph (the
+        first group of each key runs eagerly as the capture's warm-up).
+        ``host``: the group's inputs as host arrays."""
+        if not self._captures():
+            return run(self._put_batch(host), first)
+        entry = self._graphs.get(key)
+        if entry is None:
+            return self._capture_group(key, host, run, first)
+        t0 = time.time()
+        with record_function("train.upload"):
+            for name, buffer in entry.inputs.items():
+                to_device(self._host_array(host[name]), self.device,
+                          out=buffer)
+        self._prepare_time += time.time() - t0
+        entry.graph.replay()
+        for wrapper, n in entry.launches:
+            wrapper.launches += n
+        self.graph_replays += 1
+        return entry.names, entry.out.clone()
+
+    def _capture_group(self, key, host: Dict[str, np.ndarray],
+                       run: Callable, first: int
+                       ) -> Tuple[List[str], torch.Tensor]:
+        """Run this group eagerly on the capture stream (the warm-up, as
+        PyTorch's whole-network capture wants: autograd's lazy state, the
+        cuBLAS workspace of that stream, each kernel's attributes), then
+        capture ``run`` on buffers of its inputs into a graph for the
+        next groups of ``key``. Capture launches nothing, so the launches
+        the wrappers counted while it ran come off again."""
+        inputs = self._put_batch(host)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream, current = self._capture_stream, torch.cuda.current_stream(
+            self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            names, out = run(inputs, first)
+            buffers = {name: t.clone() for name, t in inputs.items()}
+        current.wait_stream(stream)
+        out.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._sampling_gen)
+        before = [w.launches for w in COUNTED_KERNELS]
+        with torch.cuda.graph(graph, stream=stream):
+            _, captured = run(buffers, first)
+        launches = []
+        for wrapper, n in zip(COUNTED_KERNELS, before):
+            if wrapper.launches != n:
+                launches.append((wrapper, wrapper.launches - n))
+                wrapper.launches = n
+        self._graphs[key] = _Graph(graph, buffers, names, captured, launches)
+        return names, out
 
     # ------------------------------------------------------------------ run
 
@@ -442,61 +705,198 @@ class TrainingJob(TrainingOrEvaluationJob):
                     os.remove(path)
 
     def run_epoch(self) -> Dict[str, Any]:
-        """One epoch, one step per batch (the host-collate loop of
-        ``kge_tpu``)."""
+        """One epoch; with ``tpu.profile_dir``, epoch 1 under
+        ``torch.profiler`` (host and device), its Chrome trace written
+        into that folder."""
+        profile_dir = self.config.get("tpu.profile_dir")
+        if not (profile_dir and self.epoch == 1):
+            return self._run_epoch_inner()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as profiler:
+            result = self._run_epoch_inner()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(profile_dir, f"epoch_{self.epoch}.trace.json"))
+        self.config.log(f"Wrote device trace to {profile_dir}")
+        return result
+
+    def _epoch_lrs(self) -> Dict[str, Any]:
+        """Each group's learning rate for this epoch: 0-d views of one
+        device buffer, filled here, which captured steps read; floats in
+        a row-sparse run (its steps are never captured, and the
+        row-update kernel takes them by value)."""
+        scale = self.lr_scheduler.lr_scale(self.epoch)
+        lrs = {g: base * scale for g, base in self.optimizer.base_lrs.items()}
+        if self._sparse_paths:
+            return lrs
+        if self._lr_buffer is None:
+            self._lr_buffer = torch.empty(len(lrs), dtype=torch.float32,
+                                          device=self.device)
+        self._lr_buffer.copy_(torch.tensor(list(lrs.values()),
+                                           dtype=torch.float32))
+        return {g: self._lr_buffer[i] for i, g in enumerate(lrs)}
+
+    def _group_corrections(self, host: Dict[str, np.ndarray], k: int):
+        """Advance the optimizer's step counts by a group's k steps and
+        add their bias corrections to the group's inputs (Adam family)."""
+        if not self.is_forward_only:
+            corrections = self.optimizer.advance(self.opt_state, k)
+            if corrections is not None:
+                host["_corrections"] = corrections
+
+    def _run_epoch_inner(self) -> Dict[str, Any]:
+        """``kge_tpu``'s ``_run_epoch_inner``: the batches in groups of
+        ``_steps_per_dispatch`` (only batches of one structure stack),
+        each group one dispatch, a shorter run of batches dispatched per
+        batch; or the device-resident epoch, uploaded once."""
         for f in self.pre_epoch_hooks:
             f(self)
-        lr_scale = self.lr_scheduler.lr_scale(self.epoch)
-        lrs = {g: base * lr_scale
-               for g, base in self.optimizer.base_lrs.items()}
-
+        lrs = self._epoch_lrs()
+        self._seed_sampling(self.epoch)
         epoch_start = time.time()
-        batch_metrics = []
+        self._prepare_time = 0.0
+        batch_metrics: List[Tuple[np.ndarray, List[str], list]] = []
         num_batches = 0
-        prepare_time = 0.0
-        batches = iter(self._generate_batches(self.epoch))
-        while True:
-            with record_function("train.collate"):
-                batch_np = next(batches, None)
-            if batch_np is None:
-                break
-            for f in self.pre_batch_hooks:
-                f(self)
+        group_size = self._steps_per_dispatch()
+
+        def flush(buffered, start_index, sig):
+            """A full group as one dispatch, else batch by batch."""
+            k = len(buffered)
+            sizes = np.asarray([float(b["size"]) for b in buffered])
+            if k == group_size and group_size > 1:
+                t0 = time.time()
+                with record_function("train.upload"):
+                    host = self._stack_group_batches(buffered)
+                    self._group_corrections(host, k)
+                self._prepare_time += time.time() - t0
+                names, values = self._dispatch_group(
+                    (sig, k), host, self._group_steps(k, lrs), start_index)
+                batch_metrics.append((sizes, names, [values]))
+                return
+            for i, batch_np in enumerate(buffered):
+                t0 = time.time()
+                with record_function("train.upload"):
+                    batch = self._put_batch(batch_np)
+                self._prepare_time += time.time() - t0
+                metrics = self._step(batch, lrs, start_index + i)
+                names = list(metrics)
+                batch_metrics.append(
+                    (sizes[i:i + 1], names, [metrics[n] for n in names]))
+
+        def signature(batch_np):
+            return tuple((key, np.shape(v), str(np.asarray(v).dtype))
+                         for key, v in sorted(batch_np.items()))
+
+        resident_np = (
+            self._epoch_device_payload(self.epoch)
+            if group_size > 1
+            # batch hooks expect per-batch cadence on the host
+            and not self.pre_batch_hooks and not self.post_batch_hooks
+            else None
+        )
+        if resident_np is not None:
+            # the whole (small) epoch goes up once; each group then
+            # ships its start index
+            M = int(np.shape(resident_np["size"])[0])
+            k = min(group_size, M)
             t0 = time.time()
             with record_function("train.upload"):
-                batch = self._put_batch(batch_np)
-            prepare_time += time.time() - t0
-            metrics = self._step(batch, lrs, num_batches)
-            batch_metrics.append((float(batch_np["size"]), metrics))
-            num_batches += 1
-            for f in self.post_batch_hooks:
-                f(self)
-        return self._finish_epoch(
-            batch_metrics, num_batches, prepare_time, epoch_start
-        )
+                run = self._group_steps(
+                    k, lrs, resident=self._resident_payload(resident_np))
+            self._prepare_time += time.time() - t0
+            full = (M // k) * k
+            for d in range(0, full, k):
+                host = {"_start": np.asarray([d], dtype=np.int64)}
+                self._group_corrections(host, k)
+                names, values = self._dispatch_group(
+                    ("epoch", k), host, run, d)
+                batch_metrics.append((
+                    np.asarray(resident_np["size"][d:d + k],
+                               dtype=np.float64), names, [values]))
+            num_batches = M
+            if full < M:  # a tail shorter than k: per-batch steps
+                flush([{key: v[j] for key, v in resident_np.items()}
+                       for j in range(full, M)], full, None)
+            return self._finish_epoch(batch_metrics, num_batches,
+                                      epoch_start)
+
+        depth = int(self.config.get("tpu.prefetch_batches"))
+        if depth < 0:
+            # auto: the reference's DataLoader-worker intent
+            depth = min(2 * int(self.config.get("train.num_workers")), 8)
+        buffered: List[Dict[str, np.ndarray]] = []
+        buffered_sig = None
+        with contextlib.closing(
+                _prefetch(self._generate_batches(self.epoch), depth)
+        ) as batches:
+            while True:
+                with record_function("train.collate"):
+                    batch_np = next(batches, None)
+                if batch_np is None:
+                    break
+                for f in self.pre_batch_hooks:
+                    f(self)
+                # only batches of one structure stack into one group
+                # (KvsAll interleaves query types and label widths)
+                sig = signature(batch_np) if group_size > 1 else None
+                if buffered and sig != buffered_sig:
+                    flush(buffered, num_batches - len(buffered),
+                          buffered_sig)
+                    buffered = []
+                buffered.append(batch_np)
+                buffered_sig = sig
+                num_batches += 1
+                if len(buffered) == group_size:
+                    flush(buffered, num_batches - len(buffered), sig)
+                    buffered = []
+                for f in self.post_batch_hooks:
+                    f(self)
+        if buffered:
+            flush(buffered, num_batches - len(buffered), buffered_sig)
+        return self._finish_epoch(batch_metrics, num_batches, epoch_start)
+
+    def _resident_payload(self, resident_np: Dict[str, np.ndarray]
+                          ) -> Dict[str, torch.Tensor]:
+        """The epoch payload on the device, in buffers kept from epoch to
+        epoch (a captured graph reads them where they are); new buffers,
+        and no captured group, when its shapes change."""
+        arrays = {k: self._host_array(v) for k, v in resident_np.items()}
+        if self._resident is None or any(
+                tuple(self._resident[k].shape) != v.shape
+                for k, v in arrays.items()):
+            self._resident = self._put_batch(arrays)
+            self._graphs = {}
+            return self._resident
+        for key, buffer in self._resident.items():
+            to_device(arrays[key], self.device, out=buffer)
+        return self._resident
 
     def _finish_epoch(self, batch_metrics, num_batches: int,
-                      prepare_time: float, epoch_start: float
-                      ) -> Dict[str, Any]:
-        """Fetch the epoch's metrics (one transfer), aggregate, trace."""
+                      epoch_start: float) -> Dict[str, Any]:
+        """Fetch the epoch's metrics (one transfer), aggregate, trace.
+        ``batch_metrics``: per dispatch, the batches' true sizes, the
+        metric names and their device values (0-d each, or one [k, n])."""
         with record_function("train.fetch"):
-            device_values = [v for _, m in batch_metrics for v in m.values()
-                             if isinstance(v, torch.Tensor)]
-            fetched = iter(
-                torch.stack(device_values).cpu().double().tolist()
-                if device_values else ()
-            )
-            batch_metrics = [
-                (size, {k: next(fetched) if isinstance(v, torch.Tensor)
-                        else float(v) for k, v in m.items()})
-                for size, m in batch_metrics
-            ]
+            flat = [t.reshape(-1) for _, _, values in batch_metrics
+                    for t in values]
+            fetched = (torch.cat(flat).cpu().double().numpy() if flat
+                       else np.zeros(0))
+        per_batch = []
+        position = 0
+        for sizes, names, _ in batch_metrics:
+            for size in sizes:
+                row = fetched[position:position + len(names)]
+                per_batch.append((float(size), dict(
+                    zip(names, (float(v) for v in row)))))
+                position += len(names)
         # avg_* epoch metrics are example-weighted batch averages:
         # sum(batch_avg * true_batch_size) / num_examples, so a short tail
         # batch does not skew the epoch average
         sums: Dict[str, float] = {}
         total_size = 0.0
-        for size, metrics in batch_metrics:
+        for size, metrics in per_batch:
             total_size += size
             for key, v in metrics.items():
                 sums[key] = sums.get(key, 0.0) + v * size
@@ -513,7 +913,7 @@ class TrainingJob(TrainingOrEvaluationJob):
             batches=num_batches,
             size=self.num_examples,
             epoch_time=epoch_time,
-            prepare_time=prepare_time,
+            prepare_time=self._prepare_time,
             event="epoch_completed",
             **{k: v / max(total_size, 1.0) for k, v in sums.items()},
         )
@@ -525,7 +925,8 @@ class TrainingJob(TrainingOrEvaluationJob):
         if line:
             self.config.log(line)
         if self.config.get("train.trace_level") == "batch":
-            for batch_index, (_, metrics) in enumerate(batch_metrics):
+            # one entry per real batch, grouped dispatches included
+            for batch_index, (_, metrics) in enumerate(per_batch):
                 self.trace(type=self.type_str, scope="batch",
                            epoch=self.epoch, batch=batch_index, **metrics)
         return trace_entry
@@ -570,24 +971,23 @@ class TrainingJob(TrainingOrEvaluationJob):
             checkpoint_file=checkpoint.get("file"),
         )
 
-    def _put_batch(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    @staticmethod
+    def _host_array(value) -> np.ndarray:
+        """A batch value as the host array of its device tensor: integer
+        arrays as int64 (index tensors)."""
+        array = np.asarray(value)
+        if array.dtype.kind in "iu":
+            array = array.astype(np.int64)
+        return array
+
+    def _put_batch(self, batch_np: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
         """Host batch -> device. Arrays go up through pinned memory without
         waiting for queued work (integer arrays as int64 index tensors);
-        scalars (the true size, the number of unique negatives) stay on
-        the host as Python numbers."""
-        out: Dict[str, Any] = {}
-        for key, value in batch_np.items():
-            if np.ndim(value) == 0:
-                out[key] = value.item()
-                continue
-            array = np.asarray(value)
-            if array.dtype.kind in "iu":
-                array = array.astype(np.int64)
-            tensor = torch.from_numpy(np.ascontiguousarray(array))
-            if self.device.type == "cuda":
-                tensor = tensor.pin_memory().to(self.device, non_blocking=True)
-            out[key] = tensor
-        return out
+        scalars (the true size, the number of unique negatives) become
+        0-d device tensors, so a step reads no value on the host."""
+        return {key: to_device(self._host_array(value), self.device)
+                for key, value in batch_np.items()}
 
     # ------------------------------------------------------------------ batching helpers
 

@@ -7,7 +7,8 @@ type (``sp_``, ``_po``, ``s_o``), with their answers as label coordinates
 padded to a power-of-two width with the out-of-range value
 ``num_candidates``; with ``tpu.steps_per_dispatch`` > 1 the epoch's
 batches are regrouped into runs of one (type, width), as ``kge_tpu``
-orders them for its grouped dispatch. The step adds the coordinates into
+orders them for its grouped dispatch, and each run dispatches as a
+group (a CUDA graph on a card, ``train.py``). The step adds the coordinates into
 a [B, N + 1] label buffer and drops its last column, so the padding
 never lands in a label.
 """

@@ -33,8 +33,13 @@ substitutes them for the tables, and the optimizer updates only them, in
 place (``KgeOptimizer.sparse_row_update``; the row-update kernel on a
 card). No [V, D] gradient exists in such a step.
 
-Not yet ported (it raises): ``tpu.on_device_sampling: always``; under
-``auto`` the port samples on the host.
+On-device sampling (``tpu.on_device_sampling``, ``kge_tpu``'s rules in
+``_resolve_on_device_sampling``): uniform shared negatives on the fused
+loss path are drawn on the device (``sampler.device_shared_sample``, from
+the job's sampling generator) at the start of each step
+(``_expand_device_batch``); a batch is then only the positions of its
+triples in the train split, and the epoch's positions and sizes go up
+once (``_epoch_device_payload``).
 """
 
 from __future__ import annotations
@@ -53,7 +58,10 @@ from kge_tpu_torch.train.graph_util import (
 )
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.train.optimizer import sparse_unsupported_reason
-from kge_tpu_torch.train.sampler import SLOT_STR, SLOTS, KgeSampler, S, P, O
+from kge_tpu_torch.train.sampler import (
+    SLOT_STR, SLOTS, KgeSampler, KgeUniformSampler, S, P, O,
+    device_shared_sample,
+)
 from kge_tpu_torch.train.train import TrainingJob
 from kge_tpu_torch.utils.seed import rng_seed_from_config
 
@@ -246,16 +254,12 @@ class TrainingJobNegativeSampling(TrainingJob):
         self.graph_sampling_size = self.config.get(
             "negative_sampling.graph_sampling_size"
         )
-        if self.config.check("tpu.on_device_sampling",
-                             ["auto", "always", "never"]) == "always":
-            raise NotImplementedError(
-                "tpu.on_device_sampling always is not yet ported to "
-                "kge_tpu_torch (negatives are sampled on the host)"
-            )
         if self.graph_sampling:
             self.num_examples = self.graph_sampling_size
         else:
             self.num_examples = len(self.dataset.split(self.train_split))
+        self._device_pool = None
+        self._on_device_sampling = self._resolve_on_device_sampling()
 
     def _sample_graph(self, rng: np.random.Generator) -> np.ndarray:
         """The epoch's subgraph, drawn from the epoch's generator (so a
@@ -310,9 +314,136 @@ class TrainingJobNegativeSampling(TrainingJob):
             )
         return slots
 
+    def _steps_per_dispatch(self) -> int:
+        """Row-sparse runs take one step a dispatch (``kge_tpu`` does at
+        Wikidata5M size, ``_sparse_host_loop_only``)."""
+        if self._sparse_paths:
+            return 1
+        return super()._steps_per_dispatch()
+
+    def _capture_unsupported_reasons(self):
+        reasons = super()._capture_unsupported_reasons()
+        if self.graph_sampling:
+            reasons.append("graph sampling re-derives the triple pool per "
+                           "epoch")
+        return reasons
+
+    # ------------------------------------------------------------------ on-device sampling
+
+    def _resolve_on_device_sampling(self) -> bool:
+        """Draw the shared negatives on the device instead of the host
+        (``tpu.on_device_sampling``; ``kge_tpu``'s reasons, order, error
+        and log line): uniform shared sampling on the fused-loss path."""
+        mode = self.config.check(
+            "tpu.on_device_sampling", ["auto", "always", "never"]
+        )
+        if mode == "never":
+            return False
+        reasons = []
+        active = tuple(s for s in SLOTS if self._sampler.num_samples[s] > 0)
+        if not active:
+            reasons.append("no negative-sample slots are active")
+        if not self._sampler.shared:
+            reasons.append("negatives are not shared")
+        if type(self._sampler) is not KgeUniformSampler:
+            reasons.append("sampler is not uniform")
+        missing = [SLOT_STR[s] for s in active if s not in self._fused_slots]
+        if missing:
+            reasons.append(
+                f"slot(s) {', '.join(missing)} are not on the fused loss "
+                "path (see tpu.fused_negsamp_loss)"
+            )
+        if self._sparse_paths:
+            reasons.append("row-sparse updates uniquify realized negatives "
+                           "on the host")
+        if self.graph_sampling:
+            reasons.append("graph sampling re-derives the triple pool "
+                           "per epoch")
+        for slot in active:
+            num = int(self._sampler.num_samples[slot])
+            voc = int(self._sampler.vocabulary_size[slot])
+            if voc < num + 1:
+                reasons.append(
+                    f"vocabulary of slot {SLOT_STR[slot]} ({voc}) is "
+                    f"smaller than num_samples+1 ({num + 1})"
+                )
+        if reasons:
+            if mode == "always":
+                raise ValueError(
+                    "tpu.on_device_sampling=always is not applicable here: "
+                    + "; ".join(reasons)
+                )
+            return False
+        self.config.log(
+            "Sampling negatives on device (host ships positive indices "
+            "only)."
+        )
+        return True
+
+    def _expand_device_batch(self, batch):
+        """A batch of positions (``pos_idx``, ``size``): its triples from
+        the device pool, its weights (the tail's padding is a suffix) and,
+        per active slot, a shared sample drawn on the device in the
+        factored form of the fused loss."""
+        if "pos_idx" not in batch:
+            return batch
+        triples = self._device_pool.index_select(0, batch["pos_idx"])
+        rows = triples.shape[0]
+        weights = (torch.arange(rows, device=triples.device)
+                   < batch["size"]).to(torch.float32)
+        out = {"triples": triples, "weights": weights, "size": batch["size"]}
+        naive = self._sampler.shared_type == "naive"
+        for slot in SLOTS:
+            num = int(self._sampler.num_samples[slot])
+            if num <= 0:
+                continue
+            unique, base, nu, drop = device_shared_sample(
+                self._sampling_gen, num,
+                int(self._sampler.vocabulary_size[slot]), naive,
+                bool(self._sampler.with_replacement), triples[:, slot])
+            key = SLOT_STR[slot]
+            out[f"neg_unique_{key}"] = unique
+            out[f"neg_base_{key}"] = base
+            out[f"neg_nu_{key}"] = nu
+            if drop is not None:
+                out[f"neg_drop_{key}"] = drop
+        return out
+
+    def _on_device_epoch_order(self, epoch: int) -> np.ndarray:
+        """The epoch's shuffled positions for on-device sampling, with the
+        train split staged on the device: the host path's draws in its
+        order, so the positives are the host-sampled run's."""
+        rng = self._epoch_np_rng(epoch)
+        if self._np_seed >= 0:
+            self._sampler.seed((self._np_seed + 1, epoch))
+        pool = self.dataset.split(self.train_split)
+        if self._device_pool is None:
+            self._device_pool = torch.from_numpy(
+                pool.astype(np.int64)).to(self.device)
+        return rng.permutation(len(pool))[: self.num_examples]
+
+    def _epoch_device_payload(self, epoch: int):
+        """The whole epoch for device-resident grouped dispatch: [M, B]
+        positions and [M] true sizes."""
+        if not self._on_device_sampling:
+            return None
+        idxs, sizes = [], []
+        for idx, _, true in self._pad_batch_indexes(
+                self._on_device_epoch_order(epoch)):
+            idxs.append(idx.astype(np.int32))
+            sizes.append(true)
+        return {"pos_idx": np.stack(idxs),
+                "size": np.asarray(sizes, dtype=np.float32)}
+
     # ------------------------------------------------------------------ batches
 
     def _generate_batches(self, epoch: int):
+        if self._on_device_sampling:
+            for idx, _, true in self._pad_batch_indexes(
+                    self._on_device_epoch_order(epoch)):
+                yield {"pos_idx": idx.astype(np.int32),
+                       "size": np.float32(true)}
+            return
         rng = self._epoch_np_rng(epoch)
         if self._np_seed >= 0:
             # negatives re-derive per epoch too (see _epoch_np_rng): a

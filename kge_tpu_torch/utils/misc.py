@@ -12,8 +12,9 @@ from __future__ import annotations
 import importlib
 import os
 import subprocess
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 
@@ -119,3 +120,20 @@ def pow2_bucket(n: int) -> int:
     if n <= 1:
         return 1
     return 1 << (n - 1).bit_length()
+
+
+def to_device(array: np.ndarray, device: torch.device,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (or copied into ``out``, a
+    tensor there of its shape and dtype): on a card through pinned memory
+    without waiting for queued work (the pinned block is not reused
+    before the copy is done)."""
+    array = np.asarray(array)
+    if not array.flags.c_contiguous:
+        array = np.ascontiguousarray(array)
+    tensor = torch.from_numpy(array)
+    if device.type == "cuda":
+        tensor = tensor.pin_memory()
+    if out is not None:
+        return out.copy_(tensor, non_blocking=True)
+    return tensor.to(device, non_blocking=True)

@@ -1,5 +1,7 @@
 """Deterministic seeding: per-consumer seeds derived from the default
-seed + md5(consumer name) (reference: kge/util/seed.py:29-60)."""
+seed + md5(consumer name) (reference: kge/util/seed.py:29-60), and the
+seeds of the training job's generators derived from ``random_seed.torch``
+and the draw's place in the run (``derived_seed``)."""
 
 from __future__ import annotations
 
@@ -41,6 +43,15 @@ def torch_generator_from_config(config: Config,
     else:
         generator.seed()
     return generator
+
+
+def derived_seed(seed: int, *parts) -> int:
+    """A 63-bit seed for one place in a run (``parts``: the epoch, and
+    the step, subbatch or stream): blake2b of ``seed/part/...``, so a
+    resumed run reseeds a generator as the uninterrupted run did."""
+    key = "/".join(str(x) for x in (seed, *parts)).encode()
+    digest = hashlib.blake2b(key, digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
 
 
 def seed_from_config(config: Config,

@@ -287,6 +287,13 @@ runs = {
     "compgcn": ["--compgcn.entity_embedder.dim", "16",
                 "--compgcn.relation_embedder.dim", "16",
                 "--compgcn.encoder.num_layers", "1"],
+    # negatives drawn on the device, the epoch grouped 4 steps a dispatch
+    "on-device": [*dim, "--train.type", "negative_sampling",
+                  "--train.loss", "kl", "--negative_sampling.shared", "true",
+                  "--negative_sampling.implementation", "batch",
+                  "--tpu.fused_negsamp_loss", "always",
+                  "--tpu.on_device_sampling", "always",
+                  "--tpu.steps_per_dispatch", "4"],
 }
 examples = {"conve": "examples/toy-conve-train.yaml",
             "compgcn": "examples/toy-transe-compgcn-train.yaml"}
@@ -307,9 +314,11 @@ def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
     """start and resume of a KvsAll run with bce and Adam, a 1vsAll run,
     a run of the default sampler (``triple`` scoring), reciprocal ConvE
     (examples/toy-conve-train.yaml: KvsAll, Adam, dropout, batch-norm
-    state) and CompGCN (examples/toy-transe-compgcn-train.yaml: an R-GNN
-    encoder with its batch-norm state), in a subprocess that loads no JAX
-    module; kge_tpu resumes each port checkpoint."""
+    state), CompGCN (examples/toy-transe-compgcn-train.yaml: an R-GNN
+    encoder with its batch-norm state) and shared negative sampling with
+    the negatives drawn on the device and 4 steps a dispatch, in a
+    subprocess that loads no JAX module; kge_tpu resumes each port
+    checkpoint."""
     folder = str(tmp_path / "runs")
     r = _run(["-c", STRATEGY_SCRIPT, folder],
              env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -320,10 +329,14 @@ def test_cli_trains_every_strategy_without_importing_kge_tpu(tmp_path):
                                 "1vsall": [1, 2, "1vsAll"],
                                 "triple": [1, 2, "negative_sampling"],
                                 "conve": [1, 2, "KvsAll"],
-                                "compgcn": [1, 2, "negative_sampling"]}
+                                "compgcn": [1, 2, "negative_sampling"],
+                                "on-device": [1, 2, "negative_sampling"]}
     with open(os.path.join(folder, "triple", "kge.log")) as f:
         assert "Preparing negative sampling with 'triple' scoring" in f.read()
-    for name in ("kvsall-adam", "1vsall", "triple", "conve", "compgcn"):
+    with open(os.path.join(folder, "on-device", "kge.log")) as f:
+        assert "Sampling negatives on device" in f.read()
+    for name in ("kvsall-adam", "1vsall", "triple", "conve", "compgcn",
+                 "on-device"):
         checkpoint = jax_load_checkpoint(
             os.path.join(folder, name, "checkpoint_00002.pt"))
         if name == "conve":

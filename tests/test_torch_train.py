@@ -253,9 +253,7 @@ def _ids(options):
 
 
 @pytest.mark.parametrize("options", [
-    {"tpu.on_device_sampling": "always"},
     {"tpu.mesh.data": 2},
-    {"tpu.prefetch_batches": 2},
 ], ids=_ids)
 def test_unported_modes_raise(options):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -276,6 +274,9 @@ def test_unported_modes_raise(options):
     {"lookup_embedder.dropout": 0.1},
     {"tpu.compute_dtype": "bfloat16"},
     {"eval.type": "training_loss", "valid.every": 1},
+    {"tpu.on_device_sampling": "always", "tpu.fused_negsamp_loss": "always",
+     "tpu.steps_per_dispatch": 4},
+    {"tpu.prefetch_batches": 2},
 ], ids=_ids)
 def test_formerly_unported_modes_train(options):
     """The modes this test file once listed as raising train an epoch
