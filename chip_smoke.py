@@ -232,6 +232,21 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    and 9's comparisons pin ``tpu.on_device_sampling: never``: they hold
    the card against the host, whose draws cannot be Philox's.
 
+24. mesh phase, the main path of this slice (run after the train
+   phase): the train phase's job (the fused loss forced, host draws) for
+   1 epoch with a validation on 4 ranks of ``python -m kge_tpu_torch
+   start`` as a 2x2 mesh (sharing one card over gloo; a card each over
+   NCCL on a machine with four), against one process on the card: epoch
+   loss within rtol 1e-5; the mesh's validation against one process's
+   ``valid`` of the mesh run's checkpoint: MRR within 1e-6, rank and tie
+   counts equal; K1 532 and K2 138 on each rank (its rows, its block of
+   the table) and in the one process; a 50-step window of every rank
+   under torch.profiler (ms a step, the ``comm.*`` collectives' share);
+   which collectives take CUDA tensors in the 4-rank group; then a
+   row-sparse ``triple`` epoch on a 1x2 mesh, K3 266 times on each rank,
+   its checkpoint equal to one process's under deterministic algorithms;
+   a 1-rank NCCL group initialised and reduced on the card.
+
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
 every run that drives a path, ``launches_by_phase``; K1's and K2's
 ``launches`` are the device_epoch main path's, K2's ``widths`` phase
@@ -3075,6 +3090,417 @@ def max_table_difference(a: dict, b: dict) -> float:
                if a[k].size else 0.0 for k in a)
 
 
+# ----------------------------------------------------------------- mesh
+
+#: one rank of a mesh run, as ``python -c``: ``python -m kge_tpu_torch``'s
+#: entry point with the argv after its first two arguments, the rank's
+#: kernel launches counted from 0, the evaluation's raw and filtered
+#: (rank, tie) counts recorded (rank 0 saves them to ``<prefix>-totals.npy``);
+#: the second argument's options: ``window``, a (first, last) step window
+#: run under torch.profiler (its seconds and the host time of the
+#: ``comm.*`` (collectives) and ``train.*`` spans), ``deterministic``,
+#: ``torch.use_deterministic_algorithms`` for the run, ``probe``, which
+#: of the backend's other collectives take CUDA tensors in this process
+#: group (every rank asks the same, so a refusal raises on all of them)
+MESH_RANK_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from kge_tpu_torch import cli
+from kge_tpu_torch.evaluation.entity_ranking import EntityRankingJob
+from kge_tpu_torch.ops import negsamp_loss as nl, rank_count as rc
+from kge_tpu_torch.ops import row_update as ru
+from kge_tpu_torch.parallel import distributed as dist
+from kge_tpu_torch.train.job import Job
+from kge_tpu_torch.train.train import TrainingJob
+
+prefix, options, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+window = options.get("window")
+torch.use_deterministic_algorithms(options.get("deterministic", False))
+kernels = (rc.rank_counts, nl.shared_ce_loss, ru.adagrad_row_update,
+           ru.sgd_row_update)
+totals = []
+accumulate = EntityRankingJob._accumulate_batch
+
+
+def record(self, hists, rankings, t, *rest):
+    totals.append(np.asarray(t[:2]))
+    return accumulate(self, hists, rankings, t, *rest)
+
+
+EntityRankingJob._accumulate_batch = record
+prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+span = {"step": 0}
+
+
+def hooks(job):
+    if not isinstance(job, TrainingJob) or job.is_forward_only:
+        return
+    first, last = window
+
+    def pre(j):
+        if j.epoch == 1 and span["step"] == first:
+            torch.cuda.synchronize()
+            prof.start()
+            span["t0"] = time.perf_counter()
+
+    def post(j):
+        span["step"] += 1
+        if j.epoch == 1 and span["step"] == last:
+            torch.cuda.synchronize()
+            span["seconds"] = time.perf_counter() - span["t0"]
+            prof.stop()
+
+    job.pre_batch_hooks.append(pre)
+    job.post_batch_hooks.append(post)
+
+
+if window:
+    Job.job_created_hooks.append(hooks)
+probe = {}
+if options.get("probe"):
+    import torch.distributed as tdist
+    dist.init_distributed(device_type="cuda")
+    torch.cuda.set_device(dist.local_rank() % torch.cuda.device_count())
+    x = torch.full((4,), float(dist.process_index()), device="cuda")
+    n = dist.process_count()
+    ops = {
+        "all_gather": lambda: tdist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "reduce_scatter": lambda: tdist.reduce_scatter(
+            torch.empty_like(x), [x.clone() for _ in range(n)]),
+        "all_to_all": lambda: tdist.all_to_all(
+            [torch.empty_like(x) for _ in range(n)],
+            [x.clone() for _ in range(n)]),
+    }
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            probe[name] = "takes CUDA tensors"
+        except Exception as e:
+            probe[name] = f"refuses them ({type(e).__name__})"
+for k in kernels:
+    k.launches = 0
+cli.main(argv)
+torch.cuda.synchronize()
+spans = {}
+if "seconds" in span:
+    from torch.autograd import DeviceType
+    for e in prof.events():  # the host side of each span
+        if (e.name.startswith(("comm.", "train."))
+                and e.device_type == DeviceType.CPU):
+            spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
+if dist.is_primary() and totals:
+    np.save(prefix + "-totals.npy", np.concatenate(totals, axis=-1))
+print("MESH_RANK " + json.dumps(dict(
+    rank=dist.process_index(), backend=dist.backend(),
+    backend_reason=dist.backend_reason(),
+    counts={k.__name__: k.launches for k in kernels},
+    window_seconds=span.get("seconds"),
+    window_steps=window[1] - window[0] if window else 0,
+    span_ms=spans, cuda_collectives=probe)), flush=True)
+"""
+MESH_WINDOW = (10, 60)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(label: str, n: int, argv: list, scratch: str,
+              timeout: float = 400.0, **options) -> list:
+    """``n`` ranks of ``MESH_RANK_SCRIPT`` on this machine's cards (rank
+    i on card i modulo their number), a rendezvous on a free local port,
+    ``options`` those of
+    ``MESH_RANK_SCRIPT``; each rank's report. A rank that fails or a run
+    past ``timeout`` kills every rank and fails the phase."""
+    procs, logs = [], []
+    port = free_port()
+    for rank in range(n):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "WORLD_SIZE": str(n),
+               "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(n)}
+        log = open(os.path.join(scratch, f"{label}-rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_RANK_SCRIPT,
+             os.path.join(scratch, label), json.dumps(options), *argv],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    reports = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            fail(f"{label}: rank {rank} exited {p.returncode}:\n"
+                 f"{text[-4000:]}")
+        lines = [line for line in text.splitlines()
+                 if line.startswith("MESH_RANK ")]
+        if not lines:
+            fail(f"{label}: rank {rank} printed no report:\n{text[-4000:]}")
+        reports.append(json.loads(lines[-1][len("MESH_RANK "):]))
+    return reports
+
+
+def backend_probe(device) -> dict:
+    """Which of gloo's collectives take CUDA tensors (a 1-rank group on
+    this card), and a 1-rank NCCL group's all_reduce on it: the backend a
+    node with a card a rank would use, at least initialised on this
+    card. Both groups are torn down again."""
+    import torch.distributed as tdist
+
+    out = {}
+    tdist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+        world_size=1, rank=0)
+    try:
+        x = torch.ones(4, device=device)
+        ops = {
+            "all_reduce": lambda: tdist.all_reduce(x),
+            "broadcast": lambda: tdist.broadcast(x, 0),
+            "all_gather": lambda: tdist.all_gather([torch.empty_like(x)], x),
+            "reduce_scatter": lambda: tdist.reduce_scatter(
+                torch.empty_like(x), [x.clone()]),
+            "all_to_all": lambda: tdist.all_to_all(
+                [torch.empty_like(x)], [x.clone()]),
+        }
+        for name, op in ops.items():
+            try:
+                op()
+                torch.cuda.synchronize()
+                out[name] = "takes CUDA tensors"
+            except Exception as e:  # the probe's answer, reported
+                out[name] = f"refuses them ({type(e).__name__})"
+    finally:
+        tdist.destroy_process_group()
+    tdist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+        world_size=1, rank=0)
+    try:
+        y = torch.arange(4, dtype=torch.float32, device=device)
+        tdist.all_reduce(y)
+        torch.cuda.synchronize()
+        if not torch.equal(y.cpu(), torch.arange(4, dtype=torch.float32)):
+            fail(f"a 1-rank NCCL all_reduce changed its input: {y}")
+        out["nccl_all_reduce"] = "ok"
+    finally:
+        tdist.destroy_process_group()
+    print("mesh backend probe (1-rank groups on the card): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The main path of this slice: the train phase's job (fused loss
+    forced, negatives drawn on the host) for 1 epoch with a validation,
+    on 4 ranks of ``python -m kge_tpu_torch start`` as a 2x2 mesh (K1 on
+    each rank's rows, K2 on each model rank's block of the padded table):
+    on one card the ranks share it over gloo; on a machine with a card a
+    rank (4 or more) each takes its own, over NCCL. Against the same job
+    in one process on the card: epoch loss within rtol 1e-5; and the mesh's
+    validation against one process's ``valid`` of the mesh run's
+    checkpoint (the same weights: two trainings differ in the last bits
+    of the embedding gradients, the atomics' order, which Adagrad's first
+    step turns into 2 lr): MRR within 1e-6, rank and tie counts equal.
+    Then a row-sparse epoch (the triple phase's job) on a 1x2 mesh, K3 on
+    each shard, its checkpoint's tables and Adagrad state within 1e-6 of
+    one process's. Then a 1-rank NCCL group initialised on the card."""
+    from kge_tpu_torch import cli
+
+    n_train = FB15K237["splits"]["train"]
+    cards = torch.cuda.device_count()
+
+    def backend(ranks):
+        """The backend the port chooses for ``ranks`` ranks here."""
+        return "gloo" if ranks > cards else "cpu:gloo,cuda:nccl"
+
+    config_file = os.path.join(scratch, "complex-mesh.yaml")
+    write_train_config(config_file, dataset_folder, seed)
+    flags = ["--train.max_epochs", "1", "--tpu.fused_negsamp_loss", "always"]
+    mesh_flags = ["--tpu.mesh.data", "2", "--tpu.mesh.model", "2"]
+
+    single = os.path.join(scratch, "mesh-single")
+    reset_counts(kernels)
+    cli.main(["start", config_file, "--folder", single, *flags])
+    torch.cuda.synchronize()
+    single_counts = counts(kernels)
+
+    run = os.path.join(scratch, "mesh-run")
+    t0 = time.perf_counter()
+    reports = run_ranks("mesh", 4, ["start", config_file, "--folder", run,
+                                    *flags, *mesh_flags], scratch,
+                        window=MESH_WINDOW, probe=True)
+    seconds = time.perf_counter() - t0
+    mesh_totals = np.load(os.path.join(scratch, "mesh-totals.npy"))
+    # the mesh's weights validated in one process on the card
+    valid = os.path.join(scratch, "mesh-valid")
+    copy_run(run, valid, "checkpoint_00001.pt")
+    record = []
+    reset_counts(kernels)
+    with recorded_counts(record):
+        s_mrr = cli.main(["valid", valid, "--checkpoint", "1"])[
+            "mean_reciprocal_rank_filtered"]
+    torch.cuda.synchronize()
+    valid_counts = counts(kernels)
+    single_totals = np.concatenate([t[:2] for _, t in record], axis=-1)
+
+    want = dict(shared_ce_loss=2 * TRAIN_STEPS, rank_counts=VALID_LAUNCHES,
+                adagrad_row_update=0, sgd_row_update=0)
+    expect_counts("the single-process run", single_counts, want)
+    expect_counts("the single-process validation", valid_counts,
+                  dict(want, shared_ce_loss=0))
+    for report in reports:
+        expect_counts(f"mesh rank {report['rank']}", report["counts"], want)
+        if report["backend"] != backend(4):
+            fail(f"mesh rank {report['rank']} ran on {report['backend']}, "
+                 f"expected {backend(4)} ({cards} card(s))")
+    s_epoch = read_trace(single, event="epoch_completed", job="train")[0]
+    m_epoch = read_trace(run, event="epoch_completed", job="train")[0]
+    m_valid = read_trace(run, event="eval_completed", job="eval")[0]
+    m_mrr = m_valid["mean_reciprocal_rank_filtered"]
+    s_valid_seconds = read_trace(single, event="eval_completed",
+                                 job="eval")[0]["epoch_time"]
+    rank_logs = [read_trace(os.path.join(run, f"proc{r}"),
+                            event="epoch_completed", job="train")[0]
+                 for r in (1, 2, 3)]
+    loss_rel = relative(s_epoch["avg_loss"], m_epoch["avg_loss"])
+    counts_equal = (single_totals.shape == mesh_totals.shape
+                    and bool(np.array_equal(single_totals, mesh_totals)))
+    differing = (int(np.sum(single_totals != mesh_totals))
+                 if single_totals.shape == mesh_totals.shape else None)
+    per_rank = []
+    for report in reports:
+        comm = sum(ms for name, ms in report["span_ms"].items()
+                   if name.startswith("comm."))
+        window_ms = 1e3 * report["window_seconds"]
+        per_rank.append(dict(
+            rank=report["rank"], backend=report["backend"],
+            backend_reason=report["backend_reason"],
+            counts=report["counts"],
+            window_ms_per_step=window_ms / report["window_steps"],
+            collective_ms_per_step=comm / report["window_steps"],
+            collective_share_of_step=comm / window_ms,
+            span_ms_per_step={k: v / report["window_steps"]
+                              for k, v in sorted(report["span_ms"].items())}))
+    out = dict(
+        single=dict(avg_loss=s_epoch["avg_loss"], mrr_of_mesh_weights=s_mrr,
+                    ms_per_step=1e3 * s_epoch["epoch_time"]
+                    / s_epoch["batches"],
+                    triples_per_s=n_train / s_epoch["epoch_time"],
+                    epoch_seconds=s_epoch["epoch_time"],
+                    valid_seconds=s_valid_seconds),
+        mesh=dict(avg_loss=m_epoch["avg_loss"], mrr=m_mrr,
+                  ms_per_step=1e3 * m_epoch["epoch_time"]
+                  / m_epoch["batches"],
+                  triples_per_s=n_train / m_epoch["epoch_time"],
+                  triples_per_s_per_rank=n_train / m_epoch["epoch_time"] / 4,
+                  epoch_seconds=m_epoch["epoch_time"],
+                  valid_seconds=m_valid["epoch_time"],
+                  seconds_all_ranks=seconds,
+                  note=("4 ranks sharing one card (not a multi-GPU number)"
+                        if cards < 4 else "4 ranks, a card each")),
+        epoch_loss_relative_difference=loss_rel,
+        mrr_difference=abs(s_mrr - m_mrr),
+        cuda_collectives_in_the_4_rank_group=reports[0]["cuda_collectives"],
+        rank_tie_counts_equal=counts_equal,
+        rank_tie_counts_differing=differing, ranks=per_rank)
+    print(f"mesh 2x2 ({cards} card(s)) vs one process on the card: "
+          + json.dumps(out),
+          flush=True)
+    if any(e["avg_loss"] != m_epoch["avg_loss"] for e in rank_logs):
+        fail(f"the mesh ranks report different losses: {rank_logs}")
+    if loss_rel > 1e-5:
+        fail(f"mesh epoch loss {m_epoch['avg_loss']} vs one process "
+             f"{s_epoch['avg_loss']}: relative {loss_rel}")
+    if abs(s_mrr - m_mrr) > 1e-6:
+        fail(f"mesh MRR {m_mrr} vs one process {s_mrr}")
+    if not counts_equal:
+        fail(f"mesh rank and tie counts differ from one process's "
+             f"({differing} entries)")
+    if any(os.path.exists(os.path.join(run, f"proc{r}", "checkpoint_00001.pt"))
+           for r in (1, 2, 3)) or not os.path.exists(
+               os.path.join(run, "checkpoint_00001.pt")):
+        fail("the mesh run's checkpoints are not rank 0's alone")
+
+    # row-sparse on a 1x2 mesh: K3 on each rank's block
+    sparse_file = os.path.join(scratch, "complex-mesh-sparse.yaml")
+    write_strategy_config(
+        sparse_file, dataset_folder, seed,
+        dict(type="negative_sampling", loss="bce", batch_size=TRAIN_BATCH,
+             optimizer={"default": {"type": "Adagrad", "args": {"lr": 0.2}}}),
+        negative_sampling={"filtering": {"o": True}},
+        lookup_embedder={"regularize_weight": 1e-5,
+                         "regularize_args": {"weighted": True}},
+        valid={"every": 0}, tpu={"sparse_updates": "always"})
+    # deterministic algorithms on both sides: the embedding gradients'
+    # index_add_ otherwise sums in the atomics' order, and Adagrad's first
+    # step (about lr * sign(g)) turns a last-bit difference into 2 * lr
+    sparse_single = os.path.join(scratch, "mesh-sparse-single")
+    reset_counts(kernels)
+    torch.use_deterministic_algorithms(True)
+    try:
+        cli.main(["start", sparse_file, "--folder", sparse_single])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sparse_single_counts = counts(kernels)
+    sparse_run = os.path.join(scratch, "mesh-sparse-run")
+    sparse_reports = run_ranks(
+        "mesh-sparse", 2, ["start", sparse_file, "--folder", sparse_run,
+                           "--tpu.mesh.model", "2"], scratch,
+        deterministic=True)
+    want_sparse = dict(adagrad_row_update=TRAIN_STEPS, sgd_row_update=0,
+                       shared_ce_loss=0, rank_counts=0)
+    expect_counts("the row-sparse single-process run", sparse_single_counts,
+                  want_sparse)
+    for report in sparse_reports:
+        expect_counts(f"row-sparse mesh rank {report['rank']}",
+                      report["counts"], want_sparse)
+        if report["backend"] != backend(2):
+            fail(f"row-sparse mesh rank {report['rank']} ran on "
+                 f"{report['backend']}, expected {backend(2)}")
+    table_diff = max_table_difference(
+        table_arrays(os.path.join(sparse_single, "checkpoint_00001.pt")),
+        table_arrays(os.path.join(sparse_run, "checkpoint_00001.pt")))
+    sparse_epoch = read_trace(sparse_run, event="epoch_completed",
+                              job="train")[0]
+    print("mesh 1x2 row-sparse vs one process on the card: " + json.dumps(
+        dict(max_table_difference=table_diff,
+             ms_per_step=1e3 * sparse_epoch["epoch_time"]
+             / sparse_epoch["batches"],
+             backends=[r["backend"] for r in sparse_reports],
+             counts=[r["counts"] for r in sparse_reports])), flush=True)
+    if table_diff > 1e-6:
+        fail(f"row-sparse 1x2 mesh tables differ from one process's by "
+             f"{table_diff}")
+    probe = backend_probe(torch.device("cuda:0"))
+    return dict(counts=single_counts,
+                ranks={r["rank"]: r["counts"] for r in reports},
+                sparse_ranks={r["rank"]: r["counts"] for r in sparse_reports},
+                summary=out, probe=probe)
+
+
 def device_epoch_phase(kernels, seed, scratch, dataset_folder) -> dict:
     """The main path of this slice: ``start`` of the train phase's config
     at kge_tpu's defaults (on-device sampling, 4 steps a dispatch): the
@@ -3644,7 +4070,7 @@ def search_phase(kernels, seed, scratch, dataset_folder) -> dict:
 
 
 PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
-          "compgcn", "rgnn_encoders", "conve", "scorers", "train",
+          "compgcn", "rgnn_encoders", "conve", "scorers", "train", "mesh",
           "device_epoch", "sgd", "bf16", "utils", "pair_ranking", "search",
           "kvsall", "1vsall", "triple", "wikidata5m")
 
@@ -3732,6 +4158,7 @@ def main():
         run("conve", conve_phase, kernels, args.seed, scratch, graph)
         run("scorers", scorers_phase, kernels, args.seed, scratch, graph)
         tr = run("train", train_phase, kernels, args.seed, scratch, graph)
+        run("mesh", mesh_phase, kernels, args.seed, scratch, graph)
         run("device_epoch", device_epoch_phase, kernels, args.seed, scratch,
             graph)
         if tr is not None:
@@ -3784,6 +4211,10 @@ def main():
         "kvsall_resume": kv["resume"], "1vsall": one["start"],
         "triple_sparse": tri["start"], "wikidata5m": w5m["counts"],
         "wikidata5m_valid": w5m["valid_counts"],
+        "mesh_single": results["mesh"]["counts"],
+        **{f"mesh_rank{r}": c for r, c in results["mesh"]["ranks"].items()},
+        **{f"mesh_sparse_rank{r}": c
+           for r, c in results["mesh"]["sparse_ranks"].items()},
         "device_epoch": de["counts"], "device_epoch_resume": de["resume_counts"],
         "device_epoch_training_loss": de["training_loss_counts"],
         "bf16": bf["counts"], "bf16_training_loss": bf["training_loss_counts"],

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
+from kge_tpu_torch.parallel import distributed as dist
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.utils.io import get_checkpoint_file, load_checkpoint
 from kge_tpu_torch.utils.misc import kge_base_dir, resolve_device
@@ -160,8 +161,12 @@ def _new_job_config(args, unknown: List[str]) -> Optional[Config]:
         folder = os.path.join(kge_base_dir(), "local", "experiments",
                               f"{timestamp}-{config_name}")
     config.folder = folder
-    if not config.init_folder():
+    # the ranks of a mesh run share one folder: rank 0 creates it
+    dist.maybe_init_from_config(config)
+    created = config.init_folder() if dist.is_primary() else True
+    if not dist.broadcast_int(int(created)):
         raise ValueError(f"output folder {folder} already exists")
+    dist.use_rank_log_folder(config)
     if args.command == "create" and not args.run:
         config.log(f"Created job folder {folder}")
         return None

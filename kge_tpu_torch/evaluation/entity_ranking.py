@@ -32,8 +32,21 @@ Reference semantics preserved:
 
 Scoring is float32 throughout: TF32 is switched off for the run (cuBLAS
 and cuDNN), since it would move scores across the tie tolerance and
-change the counts. Not ported yet: the vocabulary-sharded multi-device
-form.
+change the counts.
+
+Inside a mesh job's validation (``parallel.mesh.active``) the fused route
+takes ``kge_tpu``'s sharded rank count (its ``counts`` closure under
+``_model_mesh``; ``_sharded_rank_counts``): the queries and true scores
+of the whole batch (computed on every rank, as ``kge_tpu`` computes them
+for the global batch) are padded to a multiple of the data axis, the
+padding ranking against ``true = +inf``; each data rank takes its rows
+and each model rank launches the kernel on its block of the padded table
+(``dot_candidates_local``, padding rows invalid); the counts are summed
+over the model group and gathered over the data group, so every rank
+holds the batch's. The label coordinates' counts, which need no table,
+are the whole batch's on every rank. The generic route runs every query
+on every rank. Both read rows from the tables gathered once for the run
+(``KgeModel.whole_tables``).
 """
 
 from __future__ import annotations
@@ -48,6 +61,8 @@ from torch.profiler import record_function
 
 from kge_tpu_torch.evaluation.eval import EvaluationJob
 from kge_tpu_torch.ops.rank_count import greater_tie_counts, rank_counts
+from kge_tpu_torch.parallel import mesh as mesh_lib
+from kge_tpu_torch.parallel.distributed import all_gather, all_reduce
 from kge_tpu_torch.train.job import Job
 from kge_tpu_torch.utils.misc import pow2_bucket as _bucket
 
@@ -219,7 +234,7 @@ class EntityRankingJob(EvaluationJob):
 
     def _fused_counts(self, s, p, o, coords_sp, coords_po, o_true, s_true,
                       num_rankings: int, cand_valid: torch.Tensor,
-                      ctx) -> torch.Tensor:
+                      ctx, mesh=None) -> torch.Tensor:
         """[num_rankings, 4, B] int32 (o_rank, o_tie, s_rank, s_tie) per
         ranking variant (0 = raw, then filtered). Dot-form queries; one
         rank-count launch per side over the whole candidate table; and
@@ -227,7 +242,8 @@ class EntityRankingJob(EvaluationJob):
         their greater/tie contributions are subtracted from the raw
         counts — the same semantics as masking labels to -inf, without a
         [B, E] score matrix. ``cand_valid`` is the run's all-ones
-        candidate mask [E]."""
+        candidate mask [E]. Under a ``mesh`` the raw counts come from
+        ``_sharded_rank_counts``."""
         model = self.model
         atol, rtol = self.tie_atol, self.tie_rtol
         num_entities = self.dataset.num_entities()
@@ -246,17 +262,22 @@ class EntityRankingJob(EvaluationJob):
         # NaN-scoring model ranks last instead of first
         o_true = torch.where(torch.isnan(o_true), -torch.inf, o_true)
         s_true = torch.where(torch.isnan(s_true), -torch.inf, s_true)
-
-        # the unpadded tables, read in place by the kernel
-        cand_sp, cand_po = model.dot_candidates_all(ctx=ctx)
         # the kernel reads row-major operands: a no-op for the raw tables
         # (read in place), a copy for CP's column halves and the
         # Transformer's strided queries
         q_sp, q_po = q_sp.contiguous(), q_po.contiguous()
-        cand_sp, cand_po = cand_sp.contiguous(), cand_po.contiguous()
-        r0, t0 = rank_counts(q_sp, cand_sp, o_true, cand_valid, atol, rtol)
-        r1, t1 = rank_counts(q_po, cand_po, s_true, cand_valid, atol, rtol)
-        raw = torch.stack([r0, t0, r1, t1])
+        if mesh is None:
+            # the unpadded tables, read in place by the kernel
+            cand_sp, cand_po = model.dot_candidates_all(ctx=ctx)
+            cand_sp, cand_po = cand_sp.contiguous(), cand_po.contiguous()
+            r0, t0 = rank_counts(q_sp, cand_sp, o_true, cand_valid, atol,
+                                 rtol)
+            r1, t1 = rank_counts(q_po, cand_po, s_true, cand_valid, atol,
+                                 rtol)
+            raw = torch.stack([r0, t0, r1, t1])
+        else:
+            raw = self._sharded_rank_counts(q_sp, q_po, o_true, s_true,
+                                            ctx, mesh)
 
         def coord_counts(q, coords, true, side):
             # coords: [V-1, B, L] global entity ids (2^30 padding)
@@ -382,6 +403,38 @@ class EntityRankingJob(EvaluationJob):
             return tensor.pin_memory().to(self.device, non_blocking=True)
         return tensor
 
+    def _sharded_rank_counts(self, q_sp, q_po, o_true, s_true, ctx,
+                             mesh) -> torch.Tensor:
+        """[4, B] (o rank, o ties, s rank, s ties) of the whole batch by
+        the sharded rank count: this data rank's rows of the batch padded
+        to the data axis (padding against +inf) against this model rank's
+        block of the padded table (its padding rows invalid), the counts
+        summed over the model group (they add over candidate blocks) and
+        gathered over the data group."""
+        B = q_sp.shape[0]
+        data = mesh.shape["data"]
+        Bp = -(-B // data) * data
+        lo, hi = mesh_lib.batch_sharding(mesh, Bp)
+
+        def rows(x, fill):
+            if Bp != B:
+                pad = x.new_full((Bp - B, *x.shape[1:]), fill)
+                x = torch.cat([x, pad])
+            return x[lo:hi].contiguous()
+
+        cand_sp, cand_po, valid = self.model.dot_candidates_local(ctx)
+        atol, rtol = self.tie_atol, self.tie_rtol
+        r0, t0 = rank_counts(rows(q_sp, 0.0), cand_sp.contiguous(),
+                             rows(o_true, torch.inf), valid, atol, rtol)
+        r1, t1 = rank_counts(rows(q_po, 0.0), cand_po.contiguous(),
+                             rows(s_true, torch.inf), valid, atol, rtol)
+        raw = torch.stack([r0, t0, r1, t1])
+        if mesh.shape["model"] > 1:
+            all_reduce(raw, mesh.group("model"))
+        if data > 1:
+            raw = torch.cat(all_gather(raw, mesh.group("data")), dim=1)
+        return raw[:, :B]
+
     def _evaluate(self):
         if not self._is_prepared:
             self._prepare()
@@ -422,11 +475,13 @@ class EntityRankingJob(EvaluationJob):
         cand_valid = torch.ones(self.dataset.num_entities(),
                                 dtype=torch.float32, device=columns.device)
         use_fused = self._use_fused()
+        mesh = mesh_lib.active() if use_fused else None
         example_traces = []
         pending = []
         # Spans (torch.profiler.record_function; no cost without a
-        # profiler) name the phases a profile of this loop reads.
-        with torch.no_grad():
+        # profiler) name the phases a profile of this loop reads. Under a
+        # mesh the tables are gathered once for the run.
+        with torch.no_grad(), self.model.whole_tables():
             for start in range(0, len(self.triples), self.batch_size):
                 for f in self.pre_batch_hooks:
                     f(self)
@@ -459,7 +514,7 @@ class EntityRankingJob(EvaluationJob):
                         totals = self._fused_counts(
                             s, p, o, self._upload(coords_sp),
                             self._upload(coords_po), o_true, s_true,
-                            len(rankings), cand_valid, ctx,
+                            len(rankings), cand_valid, ctx, mesh,
                         )
                 else:
                     with record_function("entity_ranking.generic_counts"):

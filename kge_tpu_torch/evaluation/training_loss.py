@@ -22,6 +22,7 @@ class TrainingLossEvaluationJob(EvaluationJob):
         train_conf = config.clone()
         train_conf.set("job.type", "train")
         train_conf.set("train.split", self.eval_split)
+        train_conf.log_folder = config.log_folder
         self._train_job = TrainingJob.create(
             train_conf, dataset, parent_job=self, model=self.model,
             forward_only=True,

@@ -18,8 +18,9 @@ with dots (``entity_embedder.weights``, ``relation_embedder.weights``);
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ from torch import nn
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models.init import initialize, select_initialize_args
+from kge_tpu_torch.parallel.distributed import put_global
 from kge_tpu_torch.utils.misc import init_from
 from kge_tpu_torch.utils.params import (
     params_from_state_dict, state_dict_from_params, tree_map
@@ -68,30 +70,76 @@ class Ctx:
     ``cache`` is a memo for the life of the Ctx (one training step or
     subbatch, one evaluation batch): an R-GNN encoder keeps its output
     there, so every score call of the step reads one encoder forward and
-    autograd flows through that one graph."""
+    autograd flows through that one graph.
+
+    ``shard`` (a ``BatchShard``) is set in a training step under a
+    device mesh: the call computes rows ``[lo, hi)`` of a part of
+    ``total`` rows of the global batch, and ``group`` is the data group
+    that holds the other rows. Dropout then draws the global part's
+    masks and keeps its rows, and batch norm takes the global part's
+    statistics, so the mesh computes what one device does. Index
+    tensors every rank holds whole (a shared negative sample) are
+    ``mark_replicated``: their embeddings draw masks of their own
+    shape."""
 
     def __init__(self, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  state: Optional[Dict[str, Any]] = None,
-                 tables: Optional[Mapping[str, torch.Tensor]] = None):
+                 tables: Optional[Mapping[str, torch.Tensor]] = None,
+                 shard: Optional["BatchShard"] = None):
         self.train = train
         self.generator = generator
         self.state = state if state is not None else {}
         self.updates: Dict[str, Any] = {}
         self.tables = dict(tables or {})
         self.cache: Dict[str, Any] = {}
+        self.shard = shard
+        self._replicated: set = set()
 
-    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+    def mark_replicated(self, indexes: torch.Tensor):
+        """``indexes`` are the same on every rank (not batch rows)."""
+        self._replicated.add(id(indexes))
+
+    def is_replicated(self, indexes: Optional[torch.Tensor]) -> bool:
+        return indexes is not None and id(indexes) in self._replicated
+
+    def dropout(self, x: torch.Tensor, rate: float,
+                replicated: bool = False) -> torch.Tensor:
         """``kge_tpu``'s dropout: ``where(bernoulli(keep), x / keep, 0)``
-        in training, the identity otherwise."""
+        in training, the identity otherwise. Under a ``shard``, ``x``'s
+        leading axis holds k rows for each of the shard's batch rows
+        (unless ``replicated``): the mask is drawn for the global part's
+        ``k * total`` rows and this rank's block of them is kept."""
         if not self.train or rate <= 0.0:
             return x
         if self.generator is None:
             raise ValueError("this computation needs a generator in its Ctx")
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=self.generator,
+        shape, block = x.shape, None
+        if self.shard is not None and not replicated:
+            lo, hi, total = self.shard.lo, self.shard.hi, self.shard.total
+            k, rest = divmod(x.shape[0], hi - lo)
+            if rest:
+                raise ValueError(
+                    f"dropout under a mesh: {x.shape[0]} rows are not a "
+                    f"multiple of the shard's {hi - lo} batch rows (mark "
+                    "replicated index tensors with Ctx.mark_replicated)")
+            shape, block = (k * total, *x.shape[1:]), slice(k * lo, k * hi)
+        mask = torch.rand(shape, generator=self.generator,
                           dtype=x.dtype, device=x.device) < keep
+        if block is not None:
+            mask = mask[block]
         return torch.where(mask, x / keep, 0.0)
+
+
+class BatchShard(NamedTuple):
+    """Rows ``[lo, hi)`` of a part of ``total`` rows of the global
+    batch, computed on this rank; ``group``: the data group (None on one
+    data rank)."""
+    lo: int
+    hi: int
+    total: int
+    group: Any
 
 
 class KgeBase(nn.Module, Configurable):
@@ -252,6 +300,11 @@ class KgeEmbedder(KgeBase):
     def embed_all(self, ctx: Ctx) -> torch.Tensor:
         raise NotImplementedError
 
+    def local_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's rows of the padded table and their validity (see
+        ``LookupEmbedder.local_rows``)."""
+        raise NotImplementedError
+
     @torch.no_grad()
     def normalize_params(self):
         """Post-step parameter constraint (e.g. Lp normalization), in
@@ -352,20 +405,55 @@ class KgeModel(KgeBase):
 
     # ------------------------------------------------------------------ params
 
+    def sharded_tables(self) -> Dict[str, Any]:
+        """The parameters stored as this rank's row block under a mesh,
+        by name, with their embedders (empty off a mesh)."""
+        return {f"{prefix}.weights": module
+                for prefix, module in self.named_modules()
+                if getattr(module, "mesh", None) is not None
+                and hasattr(module, "row_lo")}
+
+    @contextlib.contextmanager
+    def whole_tables(self):
+        """Under a mesh, every sharded table gathered once for the block
+        (an evaluation: its weights fixed, no gradient), so its lookups
+        read that copy instead of reducing rows over the model group;
+        nothing off a mesh."""
+        sharded = list(self.sharded_tables().values())
+        with torch.no_grad():
+            for module in sharded:
+                module.whole = module.full_table()
+        try:
+            yield
+        finally:
+            for module in sharded:
+                module.whole = None
+
     def load_params(self, tree: Mapping[str, Any]):
         """Copy a ``kge_tpu``-layout params tree (nested dicts and lists
-        of arrays) into this model's parameters, on their device."""
+        of arrays, whole tables) into this model's parameters, on their
+        device; a sharded table takes its rank's rows."""
+        state = state_dict_from_params(tree)
+        for name, module in self.sharded_tables().items():
+            state[name] = put_global(state[name], module.mesh, True)
         with torch.no_grad():
-            self.load_state_dict(state_dict_from_params(tree), strict=True)
+            self.load_state_dict(state, strict=True)
 
     def params(self) -> Dict[str, Any]:
         """This model's parameters as a ``kge_tpu``-layout params tree of
         numpy arrays (empty dicts for parameterless parts, e.g. the
-        scorer of a bilinear model)."""
-        return {
-            name: params_from_state_dict(child.state_dict())
-            for name, child in self.named_children()
-        }
+        scorer of a bilinear model), whole tables (under a mesh gathered
+        over the model group: collective)."""
+        sharded = self.sharded_tables()
+        out = {}
+        for name, child in self.named_children():
+            state = child.state_dict()
+            for key in list(state):
+                module = sharded.get(f"{name}.{key}")
+                if module is not None:
+                    state[key] = module.full_table().detach()
+            out[name] = params_from_state_dict(state)
+        return out
 
     def init_state(self) -> Dict[str, Any]:
         # flat: scorer state keys (e.g. "bn1") address Ctx.state directly
@@ -573,3 +661,12 @@ class KgeModel(KgeBase):
             self.scorer.candidate_vec(emb, "sp_", ctx),
             self.scorer.candidate_vec(emb, "_po", ctx),
         )
+
+    def dot_candidates_local(self, ctx: Ctx):
+        """(cand_sp, cand_po, valid): the candidate matrices of this
+        rank's block of the padded entity table and the block's validity
+        (padding rows 0), for the rank count's sharded call; off a mesh,
+        of the whole padded table."""
+        emb, valid = self.get_s_embedder().local_rows()
+        return (self.scorer.candidate_vec(emb, "sp_", ctx),
+                self.scorer.candidate_vec(emb, "_po", ctx), valid)

@@ -27,6 +27,7 @@ from torch import nn
 
 from kge_tpu_torch.models.api import Ctx, KgeModel, RelationalScorer, promoted
 from kge_tpu_torch.models.init import initialize
+from kge_tpu_torch.parallel.collectives import data_sum
 
 
 def batch_norm(x: torch.Tensor, name: str, ctx: Ctx,
@@ -34,12 +35,26 @@ def batch_norm(x: torch.Tensor, name: str, ctx: Ctx,
                eps: float = 1e-5) -> torch.Tensor:
     """Affine-free batch norm with torch's running-statistics semantics
     (``kge_tpu``'s): the biased variance normalizes, the unbiased one
-    goes into the running statistics."""
+    goes into the running statistics. Under a mesh (``ctx.shard``) the
+    statistics are the global batch's, summed over the data group, as
+    GSPMD computes them in ``kge_tpu``."""
     state = ctx.state[name]
-    if ctx.train:
+    group = ctx.shard.group if ctx.shard is not None else None
+    if ctx.train and group is not None:
+        # under a mesh the statistics are the global part's: the sums
+        # over the data group (two passes, as torch.var takes them)
+        axes = tuple(reduce_axes)
+        n = ctx.shard.total * math.prod(x.shape[ax] for ax in axes if ax)
+        mean = data_sum(torch.sum(x, dim=axes), group) / n
+        shape = [x.shape[i] if i not in reduce_axes else 1
+                 for i in range(x.dim())]
+        var = data_sum(torch.sum((x - mean.reshape(shape)) ** 2, dim=axes),
+                       group) / n
+    elif ctx.train:
         mean = torch.mean(x, dim=tuple(reduce_axes))
         var = torch.var(x, dim=tuple(reduce_axes), correction=0)
         n = math.prod(x.shape[ax] for ax in reduce_axes)
+    if ctx.train:
         unbiased = var.detach() * n / max(n - 1, 1)
         ctx.updates[name] = {
             "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),

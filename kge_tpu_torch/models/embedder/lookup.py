@@ -6,6 +6,18 @@ The table keeps ``kge_tpu``'s layout: its row count is padded up to a
 multiple of lcm(8, ``tpu.mesh.model``) with zero rows, so tables cross
 between the two packages in both directions.
 
+Under a device mesh with a ``model`` axis above 1 (``parallel.mesh``)
+``weights`` holds this rank's block of rows of the padded table (its
+optimizer state follows its shape). ``embed`` reads rows through the
+vocab-parallel lookup (owned rows, zeros elsewhere, summed over the
+model group), ``embed_all`` gathers the whole table for the call
+(``gather_table``: exact for every scorer; the table is materialised on
+every rank for the duration of the step), and the unweighted penalty
+sums each rank's rows over the group. ``local_rows`` is the block as it
+is, for the rank count's sharded call. An evaluation gathers each table
+once for its whole run (``KgeModel.whole_tables``) and looks rows up in
+that copy.
+
 Under ``tpu.compute_dtype: bfloat16`` a training call's embeddings are
 cast to bf16 after dropout (``_cast``, as in ``kge_tpu``); the table,
 its gradient and the optimizer state stay float32, and evaluation scores
@@ -24,6 +36,10 @@ from torch import nn
 
 from kge_tpu_torch.models.api import Ctx, KgeEmbedder
 from kge_tpu_torch.ops.embedding import embedding_lookup
+from kge_tpu_torch.parallel import mesh as mesh_lib
+from kge_tpu_torch.parallel.collectives import (
+    gather_table, model_sum, vocab_lookup,
+)
 from kge_tpu_torch.utils.misc import round_to_points
 
 
@@ -73,6 +89,19 @@ class LookupEmbedder(KgeEmbedder):
                 own, rows_from = pretrained
                 rows[own.to(rows.device)] = rows_from.to(rows.device)
             weights[: self.vocab_size] = rows.to(device)
+        #: the mesh whose model group holds this table's row blocks
+        #: (None: the whole table is here)
+        self.mesh = mesh_lib.active()
+        if self.mesh is not None and self.mesh.shape["model"] == 1:
+            self.mesh = None
+        self.row_lo = 0
+        #: the whole table, gathered for an evaluation's run
+        self.whole: Optional[torch.Tensor] = None
+        if self.mesh is not None:
+            # every rank draws the whole table from the shared generator
+            # and keeps its block: the single-device initialisation
+            self.row_lo, hi = self.mesh.rows(self.padded_vocab_size)
+            weights = weights[self.row_lo:hi].clone()
         self.weights = nn.Parameter(weights, requires_grad=False)
 
     def _pretrained_rows(self):
@@ -143,12 +172,18 @@ class LookupEmbedder(KgeEmbedder):
         weight = self.get_option("regularize_weight")
         name = f"{self.configuration_key}.L{p}_penalty"
         if not self.get_option("regularize_args.weighted"):
-            table = self.weights[: self.vocab_size]
-            return [(name, weight / p * torch.sum(table.abs() ** p))]
+            if self.mesh is None:
+                table = self.weights[: self.vocab_size]
+                return [(name, weight / p * torch.sum(table.abs() ** p))]
+            # this rank's real rows, summed over the model group
+            table = self.weights[: max(0, self.vocab_size - self.row_lo)]
+            value = model_sum(torch.sum(table.abs() ** p),
+                              self.mesh.group("model"))
+            return [(name, weight / p * value)]
         if indexes is None:
             raise ValueError("weighted regularization needs batch indexes")
         idx = indexes.reshape(-1)
-        rows = torch.index_select(self._table(ctx), 0, idx)
+        rows = self._lookup(ctx, idx)
         value = weight / p * torch.sum(rows.abs() ** p) / idx.shape[0]
         return [(name, value)]
 
@@ -167,16 +202,49 @@ class LookupEmbedder(KgeEmbedder):
             return emb.to(torch.bfloat16)
         return emb
 
+    def _lookup(self, ctx: Ctx, indexes: torch.Tensor) -> torch.Tensor:
+        """Rows ``indexes`` of the table (of the rows a row-sparse step
+        substitutes for it, which every rank holds whole)."""
+        if self.mesh is None or self.table_key in ctx.tables:
+            return embedding_lookup(self._table(ctx), indexes)
+        if self.whole is not None:
+            return embedding_lookup(self.whole, indexes)
+        return vocab_lookup(self.weights, indexes, self.row_lo,
+                            self.mesh.group("model"))
+
+    def full_table(self) -> torch.Tensor:
+        """The whole padded table (gathered over the model group under a
+        mesh; collective)."""
+        if self.mesh is None:
+            return self.weights
+        if self.whole is not None:
+            return self.whole
+        return gather_table(self.weights, self.mesh.group("model"),
+                            self.mesh.model_index)
+
+    def local_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's rows of the padded table and their validity (rows
+        past ``vocab_size`` are padding), float32 [rows]: the whole table
+        off a mesh."""
+        ids = torch.arange(self.weights.shape[0], device=self.weights.device)
+        valid = (ids + self.row_lo < self.vocab_size).to(torch.float32)
+        return self.weights, valid
+
     def embed(self, indexes: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        emb = embedding_lookup(self._table(ctx), indexes)
-        return self._cast(ctx.dropout(emb, self.dropout_rate), ctx)
+        emb = self._lookup(ctx, indexes)
+        return self._cast(ctx.dropout(
+            emb, self.dropout_rate,
+            replicated=ctx.is_replicated(indexes)), ctx)
 
     def embed_all(self, ctx: Ctx, padded: bool = False) -> torch.Tensor:
         """All embeddings: a view of the table's first ``vocab_size`` rows
-        (with ``padded``, the whole padded table)."""
+        (with ``padded``, the whole padded table); under a mesh, of the
+        table gathered for this call."""
         if self.table_key in ctx.tables:
             raise ValueError(
                 f"{self.table_key}: embed_all reads the whole table, which a "
                 "row-sparse step has replaced by its gathered rows")
-        rows = self.weights if padded else self.weights[: self.vocab_size]
-        return self._cast(ctx.dropout(rows, self.dropout_rate), ctx)
+        table = self.full_table()
+        rows = table if padded else table[: self.vocab_size]
+        return self._cast(ctx.dropout(rows, self.dropout_rate,
+                                      replicated=True), ctx)

@@ -47,15 +47,24 @@ class ProjectionEmbedder(KgeEmbedder):
             weights = self.initialize(generator, shape).to(device)
         self.projection = nn.Parameter(weights, requires_grad=False)
 
-    def _project(self, emb: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    def _project(self, emb: torch.Tensor, ctx: Ctx,
+                 replicated: bool) -> torch.Tensor:
         emb, projection = promoted(emb, self.projection)
-        return ctx.dropout(emb @ projection.T, self.dropout_rate)
+        return ctx.dropout(emb @ projection.T, self.dropout_rate,
+                           replicated=replicated)
 
     def embed(self, indexes: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        return self._project(self.base.embed(indexes, ctx), ctx)
+        return self._project(self.base.embed(indexes, ctx), ctx,
+                             ctx.is_replicated(indexes))
 
     def embed_all(self, ctx: Ctx, padded: bool = False) -> torch.Tensor:
-        return self._project(self.base.embed_all(ctx, padded=padded), ctx)
+        return self._project(self.base.embed_all(ctx, padded=padded), ctx,
+                             True)
+
+    def local_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows, valid = self.base.local_rows()
+        rows, projection = promoted(rows, self.projection)
+        return rows @ projection.T, valid
 
     @torch.no_grad()
     def normalize_params(self):

@@ -110,6 +110,11 @@ class ReciprocalRelationsModel(KgeModel):
         cand = self.scorer.candidate_vec(emb, "sp_", ctx)
         return cand, cand
 
+    def dot_candidates_local(self, ctx: Ctx):
+        emb, valid = self.get_s_embedder().local_rows()
+        cand = self.scorer.candidate_vec(emb, "sp_", ctx)
+        return cand, cand, valid
+
     def dot_candidates(self, entity_ids, ctx: Ctx, sides=("sp", "po")):
         # both query sides are sp_-form under reciprocal rewriting, so
         # one candidate matrix serves both; computed iff a side asks

@@ -16,6 +16,10 @@ encoder graph, as in ``kge_tpu``.
 The params tree is ``kge_tpu``'s: ``{entity_embedder, relation_embedder,
 scorer, encoder: {layers: [...]}}``; the batch-norm statistics of the
 layers are model state under ``f"{layer name}_bn"``.
+
+Under a device mesh (``tpu.mesh``) the model raises
+``NotImplementedError``: ``kge_tpu``'s edge-partitioned halo exchange is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -345,6 +349,14 @@ class KgeRgnnModel(KgeModel):
                  generator: Optional[torch.Generator] = None,
                  init_for_load_only: bool = False):
         self._init_configuration(config, configuration_key)
+        from kge_tpu_torch.parallel import mesh as mesh_lib
+
+        if mesh_lib.active() is not None:
+            raise NotImplementedError(
+                "R-GNN encoders under a device mesh (tpu.mesh) are not yet "
+                "ported to kge_tpu_torch: kge_tpu's edge-partitioned halo "
+                "exchange (kge_tpu/models/rgnn/layers.py _halo_rowblock, "
+                "encoder.py edge-partitioned layout) comes in a later slice")
         self.orig_num_relations = dataset.num_relations()
         # embedders over the doubled relation vocabulary (inverse edges)
         alt_dataset = dataset.shallow_copy()

@@ -44,6 +44,12 @@ such table, through one launch of the row-update kernel
 Checkpoints store the state in ``kge_tpu``'s leaf order (see
 ``opt_state_tree``): ``kge_tpu`` reads ``opt_state`` by position, after
 flattening it the way ``jax.tree_util.tree_leaves`` does.
+
+Under a device mesh the slots of a table stored as a row block
+(``sharded``: the model's ``sharded_tables``) are that block too:
+``state_to_checkpoint`` gathers them whole, ``load_state`` takes the
+block of a whole one, and ``sparse_row_update`` is given the rows of
+the step its block owns, as local ids (``TrainingJob._owned_rows``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.ops.row_update import row_update_groups
+from kge_tpu_torch.parallel.distributed import fetch_global, put_global
 from kge_tpu_torch.utils.misc import to_device
 from kge_tpu_torch.utils.params import nest, tree_leaves
 
@@ -115,10 +122,14 @@ class KgeOptimizer:
     tables."""
 
     def __init__(self, config: Config, params: Mapping[str, torch.Tensor],
-                 sparse_paths: Sequence[str] = ()):
+                 sparse_paths: Sequence[str] = (),
+                 sharded: Optional[Mapping[str, Any]] = None):
         self.config = config
         self.params = dict(params)
         self.sparse_paths: Tuple[str, ...] = tuple(sparse_paths)
+        #: the tables stored as a row block under a mesh, by name, with
+        #: their embedders (``KgeModel.sharded_tables``)
+        self.sharded: Dict[str, Any] = dict(sharded or {})
         if self.sparse_paths:
             reason = sparse_unsupported_reason(config)
             if reason is not None:
@@ -348,8 +359,16 @@ class KgeOptimizer:
 
     def state_to_checkpoint(self, state: Dict[str, Dict[str, torch.Tensor]]
                             ) -> Dict[str, Any]:
+        """The state as a checkpoint tree of numpy arrays (a sharded
+        table's slots gathered whole: collective)."""
+        def whole(name, v):
+            module = self.sharded.get(name)
+            if module is not None:
+                v = fetch_global(v, module.mesh, True)
+            return v.detach().cpu().numpy()
+
         return self.opt_state_tree({
-            slot: {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+            slot: {k: whole(k, v) for k, v in tensors.items()}
             for slot, tensors in state.items()})
 
     def load_state(self, state: Dict[str, Dict[str, torch.Tensor]],
@@ -371,6 +390,9 @@ class KgeOptimizer:
                 slot, key = target_name.split("/", 1)
                 target = state[slot][key]
                 array = np.asarray(leaf)
+                module = self.sharded.get(key)
+                if module is not None and slot != "count":
+                    array = put_global(array, module.mesh, True)
                 if tuple(array.shape) != tuple(target.shape):
                     raise ValueError(
                         f"optimizer state {slot} of {key} has shape "

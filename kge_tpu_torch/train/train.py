@@ -56,7 +56,25 @@ bf16 embeddings in training (``LookupEmbedder._cast``); parameters,
 gradients and optimizer state stay float32, and every loss casts its
 scores to float32 first (``loss._Float32Loss``), as in ``kge_tpu``.
 
-Not ported here: meshes and multi-host runs, and row chunking.
+Under a device mesh (``tpu.mesh``; ``parallel/``) each process is one
+device of the (data, model) mesh, as ``kge_tpu``'s ``_put_batch`` and
+``params_sharding`` lay it out: every rank draws the whole global batch
+from the same generators (an unseeded run's seeds come from rank 0) and
+computes the rows of its ``data`` block of every part of the step
+(``_parts``: a ``BatchShard`` in each part's ``Ctx``); every loss term
+is already divided by the global batch, so the data group's sum of the
+ranks' losses and gradients is the global batch's (one ``all_reduce``
+of the step's gradients, ``_reduce_gradients``). Embedding tables are
+stored as row blocks over ``model`` (``LookupEmbedder``), and their
+optimizer state with them. Penalties are computed whole on every rank
+and divided by the data axis before their backward, so the sum counts
+them once; the epoch's metrics are summed over the data group in its one
+fetch. ``train.batch_size`` rounds up to divide the data axis. Rank 0
+alone writes checkpoints (gathered from the shards by every rank, then a
+barrier); the other ranks log to ``<folder>/proc<i>/``. Steps under a
+mesh run eagerly (``_capture_unsupported_reasons``).
+
+Not ported here: row chunking.
 """
 
 from __future__ import annotations
@@ -74,7 +92,10 @@ from torch.profiler import record_function
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models import Ctx, KgeModel
+from kge_tpu_torch.models.api import BatchShard
 from kge_tpu_torch.ops.negsamp_loss import shared_ce_loss
+from kge_tpu_torch.parallel import distributed as dist
+from kge_tpu_torch.parallel import mesh as mesh_lib
 from kge_tpu_torch.train.job import Job, TrainingOrEvaluationJob
 from kge_tpu_torch.train.loss import KgeLoss
 from kge_tpu_torch.train.optimizer import KgeLRScheduler, KgeOptimizer
@@ -170,17 +191,35 @@ class _Graph(NamedTuple):
     launches: List[Tuple[Any, int]]
 
 
-def _check_tpu_options(config: Config):
-    """Raise on the ``tpu`` options whose paths are not ported; log the
-    ones that change nothing here."""
-    if max(config.get("tpu.mesh.data"), config.get("tpu.mesh.model")) > 1:
-        raise NotImplementedError(
-            "tpu.mesh (multi-device training) is not yet ported to "
-            "kge_tpu_torch"
+def _join_process_group(config: Config):
+    """``kge_tpu``'s multi-process bootstrap: join the process group
+    (``tpu.multihost``), check that every rank has a folder or none,
+    send the other ranks' logs to ``<folder>/proc<i>/``, and make an
+    unseeded run's seeds rank 0's (every rank draws the global batch)."""
+    dist.maybe_init_from_config(config)
+    if dist.process_count() <= 1:
+        return
+    flags = dist.all_flags(1 if config.folder else 0)
+    if min(flags) != max(flags):
+        raise ValueError(
+            "multi-host runs must set a folder on every process "
+            "or on none (use one SHARED folder: process 0 writes "
+            "checkpoints, every process resumes from it)"
         )
-    if config.get("tpu.multihost.enabled") == "on":
-        raise NotImplementedError(
-            "tpu.multihost is not yet ported to kge_tpu_torch")
+    dist.use_rank_log_folder(config)
+    config.log(f"Joined the process group as rank {dist.process_index()} of "
+               f"{dist.process_count()} ({dist.backend()} backend: "
+               f"{dist.backend_reason()})")
+    for name in ("torch", "numpy"):
+        seed = rng_seed_from_config(config, name)
+        agreed = dist.broadcast_int(
+            seed if seed >= 0 else int.from_bytes(os.urandom(4), "little"))
+        if seed < 0:
+            config.set(f"random_seed.{name}", agreed)
+
+
+def _check_tpu_options(config: Config):
+    """Log the ``tpu`` options that change nothing here."""
     config.check("tpu.compute_dtype", ["float32", "bfloat16"])
     precision = config.check("tpu.matmul_precision",
                              ["default", "high", "highest"])
@@ -195,8 +234,27 @@ class TrainingJob(TrainingOrEvaluationJob):
     def __init__(self, config: Config, dataset: Dataset, parent_job: Job = None,
                  model: Optional[KgeModel] = None, forward_only: bool = False):
         super().__init__(config, dataset, parent_job)
+        _join_process_group(config)
         self.device = resolve_device(config)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)  # NCCL's current card
         _check_tpu_options(config)
+        self.batch_size: int = config.get("train.batch_size")
+        #: the device mesh (one rank a device), None on one device
+        self.mesh = mesh_lib.build_mesh(config)
+        if self.mesh is not None:
+            data_size = self.mesh.shape["data"]
+            if self.batch_size % data_size != 0:
+                new_size = -(-self.batch_size // data_size) * data_size
+                config.log(
+                    f"Rounding train.batch_size up to {new_size} to divide "
+                    f"the data mesh axis ({data_size})."
+                )
+                self.batch_size = new_size
+                config.set("train.batch_size", new_size)
+            config.log(f"Using mesh {self.mesh.shape} over "
+                       f"{self.mesh.size} devices")
+        mesh_lib.set_active(self.mesh)
         # full float32, the counterpart of tpu.matmul_precision: highest
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -221,7 +279,6 @@ class TrainingJob(TrainingOrEvaluationJob):
         self.model = model
         self.model.normalize_params()
         self.loss = KgeLoss.create(config)
-        self.batch_size: int = config.get("train.batch_size")
         self.subbatch_size: int = config.get("train.subbatch_size")
         self.train_split: str = config.get("train.split")
         self.is_forward_only = forward_only
@@ -250,7 +307,8 @@ class TrainingJob(TrainingOrEvaluationJob):
 
         self.optimizer = KgeOptimizer(
             config, dict(self.model.named_parameters()),
-            sparse_paths=self._sparse_paths)
+            sparse_paths=self._sparse_paths,
+            sharded=self.model.sharded_tables())
         self.opt_state = None if forward_only else self.optimizer.init()
         self.lr_scheduler = KgeLRScheduler(config)
         np_seed = rng_seed_from_config(config, "numpy")
@@ -267,6 +325,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                 config.get("valid.split") or config.get("eval.split"),
             )
             valid_conf.set("eval.trace_level", config.get("valid.trace_level"))
+            valid_conf.log_folder = config.log_folder
             self.valid_job = EvaluationJob.create(
                 valid_conf, dataset, parent_job=self, model=self.model
             )
@@ -363,6 +422,10 @@ class TrainingJob(TrainingOrEvaluationJob):
         if self._sparse_paths:
             reasons.append("row-sparse steps update rows the host chose, "
                            "at learning rates passed by value")
+        if self.mesh is not None:
+            reasons.append("steps under a device mesh run their collectives "
+                           "eagerly (collectives are not captured into "
+                           "CUDA graphs yet)")
         return reasons
 
     def _captures(self) -> bool:
@@ -384,11 +447,13 @@ class TrainingJob(TrainingOrEvaluationJob):
                         f"{self._steps_per_dispatch()} steps as CUDA graphs.")
         return self._capture
 
-    def _part_context(self, ctx: Ctx, step: int, part: int) -> Ctx:
+    def _part_context(self, ctx: Ctx, step: int, part: int,
+                      shard: Optional[BatchShard] = None) -> Ctx:
         """A fresh training Ctx for one part of a step: the step's state
-        and tables, its own dropout generator, no updates yet."""
+        and tables, its own dropout generator, no updates yet; under a
+        mesh, the rows of the part this rank computes."""
         return Ctx(train=True, generator=self._dropout_generator(step, part),
-                   state=ctx.state, tables=ctx.tables)
+                   state=ctx.state, tables=ctx.tables, shard=shard)
 
     def _prepare(self):
         """Subclasses set self.num_examples and any precomputed indexes."""
@@ -430,10 +495,38 @@ class TrainingJob(TrainingOrEvaluationJob):
 
     # ------------------------------------------------------------------ step
 
-    def _subbatch_slices(self) -> List[slice]:
+    def _parts(self) -> List[Tuple[slice, Optional[BatchShard]]]:
+        """The parts of a step (its subbatches) as the rows this rank
+        computes: each whole off a mesh; under a mesh, the rank's block
+        of the part's rows over the data axis and its ``BatchShard``."""
         size = self.batch_size
         sub = self.subbatch_size if self.subbatch_size > 0 else size
-        return [slice(i, min(i + sub, size)) for i in range(0, size, sub)]
+        parts = [(i, min(i + sub, size)) for i in range(0, size, sub)]
+        if self.mesh is None:
+            return [(slice(a, b), None) for a, b in parts]
+        data, index = self.mesh.shape["data"], self.mesh.data_index
+        group = self.mesh.group("data") if data > 1 else None
+        out = []
+        for a, b in parts:
+            n = b - a
+            lo, hi = n * index // data, n * (index + 1) // data
+            out.append((slice(a + lo, a + hi), BatchShard(lo, hi, n, group)))
+        return out
+
+    def _data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def _reduce_gradients(self, grads: List[torch.Tensor]):
+        """Sum ``grads`` over the data group in place (one collective)."""
+        if self._data_size() == 1 or not grads:
+            return
+        with record_function("train.reduce_gradients"):
+            flat = dist.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                   self.mesh.group("data"))
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
     def _step(self, batch: Dict[str, Any], lrs: Dict[str, Any],
               step: int = 0,
@@ -447,14 +540,14 @@ class TrainingJob(TrainingOrEvaluationJob):
         advances its counts itself)."""
         with record_function("train.forward"):
             batch = self._expand_device_batch(batch)
-        slices = self._subbatch_slices()
+        parts = self._parts()
         if self.is_forward_only:
             ctx, _ = self._step_context(batch)
             with torch.no_grad(), record_function("train.forward"):
                 total = sum(
-                    self._subbatch_loss(self._part_context(ctx, step, i),
-                                        batch, sl)
-                    for i, sl in enumerate(slices))
+                    self._subbatch_loss(
+                        self._part_context(ctx, step, i, shard), batch, sl)
+                    for i, (sl, shard) in enumerate(parts))
             return {"avg_loss": total, "avg_penalty": torch.zeros_like(total),
                     "avg_cost": total}
 
@@ -465,9 +558,9 @@ class TrainingJob(TrainingOrEvaluationJob):
             ctx, rows = self._step_context(batch)
         total_loss = 0.0
         updates: Dict[str, Any] = {}
-        for i, sl in enumerate(slices):
+        for i, (sl, shard) in enumerate(parts):
             with record_function("train.forward"):
-                part = self._part_context(ctx, step, i)
+                part = self._part_context(ctx, step, i, shard)
                 value = self._subbatch_loss(part, batch, sl)
             if isinstance(value, torch.Tensor):
                 if value.requires_grad:
@@ -483,6 +576,10 @@ class TrainingJob(TrainingOrEvaluationJob):
                 self._part_context(ctx, step, -1),
                 batch=self._penalty_batch(batch)
             )
+            # every rank computes the whole penalty: each counts for its
+            # share, so the sum over the data group counts it once
+            data = self._data_size()
+            terms = [(k, v / data if data > 1 else v) for k, v in terms]
             penalty_total = torch.zeros((), device=self.device)
             for _, v in terms:
                 penalty_total = penalty_total + v
@@ -490,15 +587,16 @@ class TrainingJob(TrainingOrEvaluationJob):
             with record_function("train.backward"):
                 penalty_total.backward()
             penalty_total = penalty_total.detach()
+        self._reduce_gradients(
+            [p.grad for p in params if p.grad is not None]
+            + [gathered.grad for _, gathered in rows.values()])
         with record_function("train.optimizer"):
             self.optimizer.step(self.opt_state, lrs, correction)
             # every sparse table of the step in one call: one launch of
             # the row-update kernel on a card
             if rows:
                 self.optimizer.sparse_row_update(
-                    self.opt_state,
-                    {name: (uniq, gathered.grad)
-                     for name, (uniq, gathered) in rows.items()}, lrs)
+                    self.opt_state, self._owned_rows(rows), lrs)
             self.model.normalize_params()
         if updates:
             self.model.model_state = {**self.model.model_state, **updates}
@@ -508,6 +606,22 @@ class TrainingJob(TrainingOrEvaluationJob):
             "avg_cost": total_loss + penalty_total,
             **{f"avg_penalty_{k}": v.detach() for k, v in terms},
         }
+
+    def _owned_rows(self, rows) -> Dict[str, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+        """``{table name: (uniq, row gradients)}`` of a row-sparse step,
+        under a mesh the rows this rank's block owns, as its local
+        ids."""
+        sharded = self.model.sharded_tables()
+        out = {}
+        for name, (uniq, gathered) in rows.items():
+            grad, module = gathered.grad, sharded.get(name)
+            if module is not None:
+                lo, n = module.row_lo, module.weights.shape[0]
+                owned = (uniq >= lo) & (uniq < lo + n)
+                uniq, grad = uniq[owned] - lo, grad[owned]
+            out[name] = (uniq, grad)
+        return out
 
     def _group_steps(self, k: int, lrs: Dict[str, Any],
                      resident: Optional[Dict[str, torch.Tensor]] = None
@@ -691,7 +805,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         return result
 
     def _delete_obsolete_checkpoints(self, every: int, keep: int):
-        if not self.config.folder:
+        if not self.config.folder or not dist.is_primary():
             return
         keep_init = self.config.get("train.checkpoint.keep_init")
         for e in range(1 if keep_init else 0, self.epoch):
@@ -881,8 +995,14 @@ class TrainingJob(TrainingOrEvaluationJob):
         with record_function("train.fetch"):
             flat = [t.reshape(-1) for _, _, values in batch_metrics
                     for t in values]
-            fetched = (torch.cat(flat).cpu().double().numpy() if flat
-                       else np.zeros(0))
+            flat = torch.cat(flat) if flat else torch.zeros(
+                0, device=self.device)
+            if self._data_size() > 1:
+                # each rank's losses are its rows' share of the global
+                # batch's (its penalties a 1/data share): the sum is the
+                # global batch's
+                dist.all_reduce(flat, self.mesh.group("data"))
+            fetched = flat.cpu().double().numpy()
         per_batch = []
         position = 0
         for sizes, names, _ in batch_metrics:
@@ -934,6 +1054,9 @@ class TrainingJob(TrainingOrEvaluationJob):
     # ------------------------------------------------------------------ checkpoints
 
     def _save(self, filename: str):
+        """Write a checkpoint of whole tables: under a mesh every rank
+        gathers the shards (collective), rank 0 alone writes, and all
+        meet at a barrier after the write."""
         if self.config.folder is None:
             return
         self.config.log(f"Saving checkpoint to {filename}...")
@@ -948,9 +1071,16 @@ class TrainingJob(TrainingOrEvaluationJob):
                           self.optimizer.state_to_checkpoint(self.opt_state)),
         }
         self.model.save_to(checkpoint)
+        if not dist.is_primary():
+            dist.barrier()
+            return
         self.config.save_to(checkpoint)
         self.dataset.save_to(checkpoint)
-        save_checkpoint(filename, checkpoint)
+        try:
+            save_checkpoint(filename, checkpoint)
+        finally:
+            # the other ranks wait here, whether the write failed or not
+            dist.barrier()
 
     def _load(self, checkpoint: Dict[str, Any]):
         if checkpoint["type"] != "train":

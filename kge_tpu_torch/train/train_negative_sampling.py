@@ -40,6 +40,16 @@ the job's sampling generator) at the start of each step
 (``_expand_device_batch``); a batch is then only the positions of its
 triples in the train split, and the epoch's positions and sizes go up
 once (``_epoch_device_payload``).
+
+Under a device mesh each rank scores its rows of the batch against the
+replicated shared sample (marked so in the part's ``Ctx``): the fused
+loss launches the kernel on the rank's rows, and the data group sums the
+partial losses and gradients (``kge_tpu``'s ``shared_ce_loss_sharded``;
+``tpu.fused_negsamp_loss: auto`` is off under a mesh, ``always`` takes
+this route). A row-sparse step gathers its rows through the
+vocab-parallel lookup, and each rank updates the rows its block owns
+(``TrainingJob._owned_rows``). On-device draws are the same on every
+rank (one seed), and each rank takes its rows of them.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from kge_tpu_torch.models import Ctx, KgeModel, ReciprocalRelationsModel
 from kge_tpu_torch.models.embedder.lookup import LookupEmbedder
 from kge_tpu_torch.ops.gather import row_gather
 from kge_tpu_torch.ops.negsamp_loss import expand_counts, shared_ce_loss
+from kge_tpu_torch.parallel.collectives import vocab_lookup
 from kge_tpu_torch.train.graph_util import (
     sample_edge_neighbourhood, sample_uniform,
 )
@@ -213,10 +224,17 @@ class TrainingJobNegativeSampling(TrainingJob):
         if not self._sparse_paths:
             return super()._step_context(batch)
         rows, tables = {}, {}
+        sharded = self.model.sharded_tables()
         for path, key in zip(SPARSE_TABLES, ("uniq_e", "uniq_r")):
             uniq = batch[key]
-            table = self.model.get_parameter(path)
-            gathered = table.detach().index_select(0, uniq).requires_grad_()
+            table = self.model.get_parameter(path).detach()
+            module = sharded.get(path)
+            if module is None:
+                gathered = table.index_select(0, uniq)
+            else:
+                gathered = vocab_lookup(table, uniq, module.row_lo,
+                                        module.mesh.group("model"))
+            gathered.requires_grad_()
             rows[path] = (uniq, gathered)
             tables[path.split(".")[0]] = gathered
         return Ctx(train=True, state=self.model.model_state,
@@ -299,6 +317,9 @@ class TrainingJobNegativeSampling(TrainingJob):
                            "native score")
         if mode == "auto" and self.device.type != "cuda":
             reasons.append("no CUDA device (the kernel runs on the card)")
+        if mode == "auto" and self.mesh is not None:
+            reasons.append("a device mesh (set always for the sharded "
+                           "route)")
         if reasons:
             if mode == "always":
                 raise ValueError(
@@ -624,6 +645,9 @@ class TrainingJobNegativeSampling(TrainingJob):
         return row_gather(all_scores, cols)
 
     def _subbatch_loss(self, ctx: Ctx, batch, sl):
+        for key, value in batch.items():
+            if key.startswith("neg_unique_"):
+                ctx.mark_replicated(value)  # one shared sample, every rank
         triples = batch["triples"][sl]
         weights = batch["weights"][sl]
         size = batch["size"]

@@ -89,13 +89,22 @@ def round_to_points(round_points_to: List[int], to_round: int) -> int:
 
 def resolve_device(config) -> torch.device:
     """The torch device ``job.device`` names: ``auto`` and ``cuda`` mean
-    the current CUDA device, ``cuda:N`` card N, ``cpu`` the host. A CUDA
+    the current CUDA device, or ``cuda:LOCAL_RANK`` in a process group
+    (each rank its node's card of its index; ranks past the node's cards
+    share them round robin), ``cuda:N`` card N, ``cpu`` the host. A CUDA
     device that is not there raises; nothing falls back to the host."""
     name = config.get("job.device")
     if name == "cpu":
         return torch.device("cpu")
     if name == "auto":
         name = "cuda"
+    if name == "cuda" and torch.cuda.is_available():
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            from kge_tpu_torch.parallel.distributed import local_rank
+
+            name = f"cuda:{local_rank() % torch.cuda.device_count()}"
     if not name.startswith("cuda"):
         raise ValueError(
             f"job.device {name!r} not supported (auto, cpu, cuda, cuda:N)"

@@ -27,6 +27,7 @@ from tests.test_torch_train import (
     TABLE_TOL, TOY, assert_tables_close, jax_job, jax_tables, make_config,
     port_job, port_tables, record_epochs,
 )
+from tests.torch_mesh_launch import launch_ok
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # toy-size tensors: one torch thread, since the test workers share the
@@ -474,3 +475,47 @@ def test_cli_verbs_without_importing_kge_tpu(jax_folder, tmp_path):
     imported = jax_load_checkpoint(os.path.join(out, "imported.pt"))
     assert imported["type"] == "import" and imported["epoch"] == 3
     JaxKgeModel.create_from(imported)
+
+
+MESH_SCRIPT = """
+import json, sys
+from kge_tpu_torch import cli
+
+folder = sys.argv[1]
+cpu = ["--job.device", "cpu", "--console.quiet", "true"]
+started = cli.main(["start", "examples/toy-complex-train.yaml",
+                    "--folder", folder, "--train.max_epochs", "1",
+                    "--valid.every", "1", "--tpu.mesh.data", "2",
+                    "--tpu.mesh.model", "2", *cpu])
+resumed = cli.main(["resume", folder, "--train.max_epochs", "2", *cpu])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
+print("RESULT " + json.dumps(dict(
+    loaded=loaded, epochs=[started["epoch"], resumed["epoch"]],
+    loss=resumed["avg_loss"])))
+"""
+
+
+def test_cli_mesh_run_without_importing_kge_tpu(tmp_path):
+    """``start`` and ``resume`` of the toy example on a 2x2 mesh, four
+    gloo ranks of the CLI: no rank loads a JAX module, every rank reports
+    the same epochs, rank 0 alone writes the checkpoints, and kge_tpu
+    evaluates the best one."""
+    folder = str(tmp_path / "mesh-run")
+    outs = launch_ok(4, ["-c", MESH_SCRIPT, folder])
+    results = [json.loads(line[len("RESULT "):]) for out in outs
+               for line in out.splitlines() if line.startswith("RESULT ")]
+    assert len(results) == 4
+    for result in results:
+        assert result["loaded"] == []
+        assert result["epochs"] == [1, 2]
+        assert result["loss"] == results[0]["loss"]
+    names = os.listdir(folder)
+    assert {"checkpoint_00002.pt", "checkpoint_best.pt", "proc1", "proc2",
+            "proc3"} <= set(names)
+    for rank in (1, 2, 3):
+        assert not [n for n in os.listdir(os.path.join(folder, f"proc{rank}"))
+                    if n.startswith("checkpoint")]
+    assert [e["epoch"] for e in epoch_entries(folder)] == [1, 2]
+    want = jax_eval(os.path.join(folder, "checkpoint_best.pt"), folder)
+    assert np.isfinite(want["mean_reciprocal_rank_filtered"])

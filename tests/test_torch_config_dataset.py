@@ -79,11 +79,14 @@ def test_port_config_in_a_checkpoint_loads_in_kge_tpu():
 
 
 def test_port_modules_rewrite():
-    """kge_tpu's modules map to the port's; one the port lacks (the
-    multi-device ``kge_tpu.parallel``) is dropped; others pass through."""
+    """kge_tpu's modules map to the port's (the multi-device
+    ``kge_tpu.parallel`` too, now ported); one the port lacks (the g++
+    host ops, ``kge_tpu.native``) is dropped; others pass through."""
     assert port_modules(["kge_tpu.models", "kge_tpu.search",
-                         "kge_tpu.parallel", "my.plugin"]) \
-        == ["kge_tpu_torch.models", "kge_tpu_torch.search", "my.plugin"]
+                         "kge_tpu.parallel", "kge_tpu.native",
+                         "my.plugin"]) \
+        == ["kge_tpu_torch.models", "kge_tpu_torch.search",
+            "kge_tpu_torch.parallel", "my.plugin"]
 
 
 @pytest.fixture
