@@ -246,6 +246,24 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    row-sparse ``triple`` epoch on a 1x2 mesh, K3 266 times on each rank,
    its checkpoint equal to one process's under deterministic algorithms;
    a 1-rank NCCL group initialised and reduced on the card.
+25. rgnn_mesh phase, the main path of this slice (run after the mesh
+   phase): three R-GNN jobs at their recipes' widths on the
+   FB15k-237-size graph, each for RGNN_MESH_STEPS steps on 4 ranks
+   sharing the card as a 2x2 mesh, against the same steps in one
+   process on the card: CompGCN's recipe (``ccorr``: the gathered
+   route, no exchange), CompGCN with ``sub`` (the halo route) and
+   RAGAT's recipe (halo attention), their dropout as the recipes set it
+   (the masks are drawn over the whole graph on every rank). Checked:
+   the route (exchanges counted on every rank, or none), the ranks'
+   losses equal, the first step within 1e-5 of one process's, every
+   step within 1e-2 (Adam's sign trap), K1, K2 and K3 never launched;
+   printed: the halo bytes a layer against the whole-table gather's, ms
+   a step in a profiled window and the ``comm.*`` share of it. Then
+   CompGCN with ``sub`` in one process, the edge list against the dense
+   adjacency (``always``) in float32 and bf16: ms a step and the losses
+   (float32's first step within 1e-5 of the edge list's, bf16's within
+   1e-2). The Wikidata5M-size phase prints the g++ host ops' seconds
+   against numpy's on its split.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with its launches in
 every run that drives a path, ``launches_by_phase``; K1's and K2's
@@ -2045,6 +2063,46 @@ def losses_optimizers_phase(seed, device) -> dict:
 # ----------------------------------------------------------------- wikidata5m
 
 
+def host_ops_phase(dataset_folder: str) -> dict:
+    """The g++ host ops (``kge_tpu_torch/native``) against numpy on the
+    split in ``dataset_folder``: the triple parser against ``np.loadtxt``
+    and the stable counting sort of the subjects against
+    ``np.argsort(kind="stable")`` (the R-GNN graph builders' sort), the
+    library's build included in its first call; the arrays must be
+    equal."""
+    from kge_tpu_torch import native
+
+    path = os.path.join(dataset_folder, "train.del")
+    t0 = time.perf_counter()
+    lib = native.library()
+    build = time.perf_counter() - t0
+    if lib is None:
+        fail("the g++ host ops did not build on this machine")
+    t0 = time.perf_counter()
+    triples = native.parse_triples(path)
+    parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.loadtxt(path, dtype=np.int64, usecols=(0, 1, 2),
+                      ndmin=2).astype(np.int32)
+    loadtxt = time.perf_counter() - t0
+    keys = triples[:, 0]
+    t0 = time.perf_counter()
+    order = native.counting_argsort(keys, W5M_ENTITIES)
+    sort = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_order = np.argsort(keys, kind="stable")
+    argsort = time.perf_counter() - t0
+    out = dict(triples=len(triples), build_or_load_seconds=build,
+               parse_seconds=parse, loadtxt_seconds=loadtxt,
+               counting_argsort_seconds=sort, argsort_seconds=argsort)
+    print("host ops on the Wikidata5M-size split: " + json.dumps(out),
+          flush=True)
+    if not (np.array_equal(triples, want)
+            and np.array_equal(order, want_order)):
+        fail("the g++ host ops differ from numpy's arrays")
+    return out
+
+
 def w5m_phase(kernels, seed, scratch) -> dict:
     """The slice's path: ``start`` of examples/wikidata5m-complex-train.yaml
     as it is (tpu.sparse_updates auto) on a synthetic graph with
@@ -2062,6 +2120,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
     dataset_folder = os.path.join(scratch, "wikidata5m-synthetic")
     write_dataset(dataset_folder, seed, WIKIDATA5M)
     dataset_seconds = time.perf_counter() - t0
+    host_ops_phase(dataset_folder)
 
     saves = []  # seconds of each checkpoint save (host copy + pickle)
     save = TrainingJob._save
@@ -3096,18 +3155,20 @@ def max_table_difference(a: dict, b: dict) -> float:
 #: entry point with the argv after its first two arguments, the rank's
 #: kernel launches counted from 0, the evaluation's raw and filtered
 #: (rank, tie) counts recorded (rank 0 saves them to ``<prefix>-totals.npy``);
-#: the second argument's options: ``window``, a (first, last) step window
+#: the second argument's options: ``steps``, the batches of each training
+#: epoch (the first ones, in order), ``window``, a (first, last) step window
 #: run under torch.profiler (its seconds and the host time of the
 #: ``comm.*`` (collectives) and ``train.*`` spans), ``deterministic``,
 #: ``torch.use_deterministic_algorithms`` for the run, ``probe``, which
 #: of the backend's other collectives take CUDA tensors in this process
 #: group (every rank asks the same, so a refusal raises on all of them)
 MESH_RANK_SCRIPT = r"""
-import json, sys, time
+import itertools, json, sys, time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 from kge_tpu_torch import cli
+from kge_tpu_torch.parallel.collectives import halo_exchange
 from kge_tpu_torch.evaluation.entity_ranking import EntityRankingJob
 from kge_tpu_torch.ops import negsamp_loss as nl, rank_count as rc
 from kge_tpu_torch.ops import row_update as ru
@@ -3158,6 +3219,19 @@ def hooks(job):
 
 if window:
     Job.job_created_hooks.append(hooks)
+jobs = []
+
+
+def cut(job):
+    if isinstance(job, TrainingJob) and not job.is_forward_only:
+        jobs.append(job)
+        if options.get("steps"):
+            generate = job._generate_batches
+            job._generate_batches = lambda epoch: itertools.islice(
+                generate(epoch), options["steps"])
+
+
+Job.job_created_hooks.append(cut)
 probe = {}
 if options.get("probe"):
     import torch.distributed as tdist
@@ -3194,7 +3268,23 @@ if "seconds" in span:
             spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
 if dist.is_primary() and totals:
     np.save(prefix + "-totals.npy", np.concatenate(totals, axis=-1))
+halo = {}
+encoder = getattr(jobs[0].model, "encoder", None) if jobs else None
+if encoder is not None:
+    layout = encoder.halo_layout or {}
+    halo = dict(
+        blocks=layout.get("P"), rows=layout.get("S"),
+        rmax={k[:-5]: v.shape[2] for k, v in layout.items()
+              if k.endswith("_send")},
+        layers=[dict(name=l.name, halo="halo" in encoder.graph(),
+                     attention=bool(getattr(l, "attention", False)),
+                     heads=getattr(l, "num_heads", 1),
+                     keys=[k for k in map(l.rb_key, l.modes) if k]
+                     if hasattr(l, "rb_key") else [],
+                     in_dim=l.in_dim, out_dim=l.out_dim)
+                for l in encoder.layers])
 print("MESH_RANK " + json.dumps(dict(
+    halo_exchanges=halo_exchange.calls, halo=halo,
     rank=dist.process_index(), backend=dist.backend(),
     backend_reason=dist.backend_reason(),
     counts={k.__name__: k.launches for k in kernels},
@@ -3499,6 +3589,215 @@ def mesh_phase(kernels, seed, scratch, dataset_folder) -> dict:
                 ranks={r["rank"]: r["counts"] for r in reports},
                 sparse_ranks={r["rank"]: r["counts"] for r in sparse_reports},
                 summary=out, probe=probe)
+
+
+RAGAT_RECIPE = os.path.join(_RECIPES, "fb15k237-ragat.yaml")
+RGNN_MESH_STEPS = 20
+RGNN_MESH_WINDOW = (6, 16)
+#: the jobs of the rgnn_mesh phase: recipe, options, the route they take
+RGNN_MESH_RUNS = {
+    "compgcn_ccorr": (COMPGCN_RECIPE, {}, "gathered"),
+    "compgcn_sub": (COMPGCN_RECIPE, {
+        "compgcn.encoder.message_passing_args.composition": "sub"}, "halo"),
+    "ragat": (RAGAT_RECIPE, {}, "halo"),
+}
+
+
+@contextlib.contextmanager
+def step_window(record: list, first: int, last: int):
+    """Seconds from the start of step ``first`` to the end of step
+    ``last`` (card synchronized) of every training job created inside,
+    appended to ``record``."""
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.train.train import TrainingJob
+
+    def hooks(job):
+        if not isinstance(job, TrainingJob) or job.is_forward_only:
+            return
+        step = {"n": 0}
+
+        def pre(j):
+            if step["n"] == first:
+                torch.cuda.synchronize()
+                step["t0"] = time.perf_counter()
+
+        def post(j):
+            step["n"] += 1
+            if step["n"] == last:
+                torch.cuda.synchronize()
+                record.append(time.perf_counter() - step["t0"])
+
+        job.pre_batch_hooks.append(pre)
+        job.post_batch_hooks.append(post)
+
+    Job.job_created_hooks.append(hooks)
+    try:
+        yield
+    finally:
+        Job.job_created_hooks.remove(hooks)
+
+
+def halo_volume(halo: dict, P: int, S: int) -> list:
+    """Per layer of a rank's report: the bytes one forward sends a rank
+    on the halo route (each exchange (P-1) * rmax rows: of x @ W a mode
+    and head, of the raw x once an edge set under attention) against the
+    whole-table gather's ((P-1) * S rows of the layer's input; P blocks
+    of S rows)."""
+    out = []
+    for layer in halo.get("layers", []):
+        gather = (P - 1) * S * layer["in_dim"] * 4
+        if not layer["halo"]:
+            out.append(dict(name=layer["name"], route="gathered",
+                            gather_bytes=gather))
+            continue
+        keys = layer["keys"]
+        if layer["attention"]:
+            sent = sum((P - 1) * halo["rmax"][k] * layer["in_dim"] * 4
+                       for k in set(keys))
+        else:
+            sent = layer["heads"] * sum(
+                (P - 1) * halo["rmax"][k] * layer["out_dim"] * 4
+                for k in keys)
+        out.append(dict(name=layer["name"], route="halo", halo_bytes=sent,
+                        gather_bytes=gather, halo_over_gather=sent / gather))
+    return out
+
+
+def rgnn_mesh_phase(kernels, seed, scratch, dataset_folder) -> dict:
+    """The main path of this slice: each of RGNN_MESH_RUNS on a 2x2 mesh
+    of 4 ranks sharing the card against one process on the card, then
+    the dense adjacency against the edge list (module docstring, phase
+    25)."""
+    from kge_tpu_torch import cli
+
+    out = {}
+    n = RGNN_MESH_STEPS
+    for name, (recipe, options, route) in RGNN_MESH_RUNS.items():
+        config_file = os.path.join(scratch, f"rgnn-mesh-{name}.yaml")
+        write_recipe_config(config_file, recipe, dataset_folder, seed, {
+            "train.max_epochs": 1, "train.trace_level": "batch",
+            "valid.every": 0, "tpu.gnn_dense_adjacency": "never",
+            **options})
+        single = os.path.join(scratch, f"rgnn-mesh-{name}-single")
+        windows = []
+        reset_counts(kernels)
+        with first_batches(n), step_window(windows, *RGNN_MESH_WINDOW):
+            cli.main(["start", config_file, "--folder", single])
+        torch.cuda.synchronize()
+        single_counts = counts(kernels)
+        expect_counts(f"rgnn_mesh {name}, one process", single_counts,
+                      NO_KERNELS)
+        run = os.path.join(scratch, f"rgnn-mesh-{name}")
+        t0 = time.perf_counter()
+        reports = run_ranks(
+            f"rgnn-mesh-{name}", 4,
+            ["start", config_file, "--folder", run, "--tpu.mesh.data", "2",
+             "--tpu.mesh.model", "2"], scratch, window=RGNN_MESH_WINDOW,
+            steps=n)
+        seconds = time.perf_counter() - t0
+        want_losses = batch_losses(single)
+        losses = batch_losses(run)
+        rank_losses = [batch_losses(os.path.join(run, f"proc{r}"))
+                       for r in (1, 2, 3)]
+        exchanges = [r["halo_exchanges"] for r in reports]
+        engaged = all(e > 0 for e in exchanges) if route == "halo" else \
+            not any(exchanges)
+        with open(os.path.join(run, "kge.log")) as f:
+            logged = [line.split(" ", 2)[-1].strip() for line in f
+                      if "R-GNN encoder under a model axis" in line]
+        # each model rank computes the loss of its data rows whole: equal
+        # up to the order of the card's atomic sums (index_add_)
+        rank_spread = max((relative(a, b) for l in rank_losses
+                           for a, b in zip(losses, l)), default=0.0)
+        first = relative(want_losses[0], losses[0]) if losses else None
+        worst = max((relative(a, b) for a, b in zip(want_losses, losses)),
+                    default=None)
+        window_ms = [1e3 * r["window_seconds"] / r["window_steps"]
+                     for r in reports]
+        comm_share = [sum(ms for k, ms in r["span_ms"].items()
+                          if k.startswith("comm.")) / (1e3 *
+                                                       r["window_seconds"])
+                      for r in reports]
+        entry = dict(
+            route=route, route_engaged=engaged, exchanges=exchanges,
+            routes_logged=logged, halo=halo_volume(
+                reports[0]["halo"], 2, FB_ENTITY_ROWS // 2),
+            rmax=reports[0]["halo"].get("rmax"),
+            losses=losses, single_losses=want_losses,
+            first_step_relative_difference=first,
+            largest_step_relative_difference=worst,
+            rank_loss_spread=rank_spread, ms_per_step=window_ms, comm_share_of_step=comm_share,
+            span_ms_per_step={k: v / reports[0]["window_steps"] for k, v in
+                              sorted(reports[0]["span_ms"].items())},
+            single_ms_per_step=1e3 * windows[0] / (
+                RGNN_MESH_WINDOW[1] - RGNN_MESH_WINDOW[0]),
+            seconds_all_ranks=seconds,
+            counts={r["rank"]: r["counts"] for r in reports},
+            single_counts=single_counts, backend=reports[0]["backend"])
+        print(f"rgnn_mesh {name} 2x2 vs one process on the card: "
+              + json.dumps(entry), flush=True)
+        if not engaged:
+            fail(f"rgnn_mesh {name}: the {route} route did not engage "
+                 f"(exchanges {exchanges})")
+        if len(losses) != n or len(want_losses) != n or not all(
+                map(math.isfinite, losses)):
+            fail(f"rgnn_mesh {name}: losses {losses} vs {want_losses}")
+        if any(len(l) != n for l in rank_losses) or rank_spread > 1e-6:
+            fail(f"rgnn_mesh {name}: the ranks' losses differ by "
+                 f"{rank_spread}")
+        if first > 1e-5 or worst > 1e-2:
+            fail(f"rgnn_mesh {name}: first step {first}, largest {worst}")
+        for report in reports:
+            expect_counts(f"rgnn_mesh {name} rank {report['rank']}",
+                          report["counts"], NO_KERNELS)
+        shutil.rmtree(run)
+        shutil.rmtree(single)
+        out[name] = entry
+
+    # the dense adjacency against the edge list, one process
+    config_file = os.path.join(scratch, "rgnn-dense.yaml")
+    write_recipe_config(config_file, COMPGCN_RECIPE, dataset_folder, seed, {
+        "train.max_epochs": 1, "train.trace_level": "batch",
+        "valid.every": 0, **RGNN_MESH_RUNS["compgcn_sub"][1]})
+    dense = {}
+    for label, flags in (
+            ("edge_list", ["--tpu.gnn_dense_adjacency", "never"]),
+            ("dense_float32", ["--tpu.gnn_dense_adjacency", "always"]),
+            ("dense_bfloat16", ["--tpu.gnn_dense_adjacency", "always",
+                                "--tpu.gnn_dense_adjacency_dtype",
+                                "bfloat16"])):
+        folder = os.path.join(scratch, f"rgnn-{label}")
+        windows = []
+        reset_counts(kernels)
+        with first_batches(n), step_window(windows, *RGNN_MESH_WINDOW):
+            cli.main(["start", config_file, "--folder", folder, *flags])
+        torch.cuda.synchronize()
+        launched = counts(kernels)
+        expect_counts(f"rgnn_mesh {label}", launched, NO_KERNELS)
+        with open(os.path.join(folder, "kge.log")) as f:
+            used = "Using the dense" in f.read()
+        if used != label.startswith("dense"):
+            fail(f"rgnn_mesh {label}: the dense adjacency used: {used}")
+        dense[label] = dict(
+            losses=batch_losses(folder), counts=launched,
+            ms_per_step=1e3 * windows[0] / (RGNN_MESH_WINDOW[1]
+                                            - RGNN_MESH_WINDOW[0]))
+        shutil.rmtree(folder)
+    base = dense["edge_list"]["losses"]
+    for label, bound in (("dense_float32", 1e-5), ("dense_bfloat16", 1e-2)):
+        got = dense[label]["losses"]
+        dense[label]["first_step_relative_difference"] = relative(
+            base[0], got[0])
+        dense[label]["largest_step_relative_difference"] = max(
+            relative(a, b) for a, b in zip(base, got))
+        if (len(got) != n or not all(map(math.isfinite, got))
+                or dense[label]["first_step_relative_difference"] > bound):
+            fail(f"rgnn_mesh {label} vs the edge list: {dense[label]}, "
+                 f"edge list {base}")
+    print("rgnn_mesh dense adjacency vs edge list (CompGCN sub, one "
+          "process): " + json.dumps(dense), flush=True)
+    out["dense"] = dense
+    return out
 
 
 def device_epoch_phase(kernels, seed, scratch, dataset_folder) -> dict:
@@ -4071,7 +4370,7 @@ def search_phase(kernels, seed, scratch, dataset_folder) -> dict:
 
 PHASES = ("k2", "k2_widths", "k1", "k3", "losses_optimizers", "eval",
           "compgcn", "rgnn_encoders", "conve", "scorers", "train", "mesh",
-          "device_epoch", "sgd", "bf16", "utils", "pair_ranking", "search",
+          "rgnn_mesh", "device_epoch", "sgd", "bf16", "utils", "pair_ranking", "search",
           "kvsall", "1vsall", "triple", "wikidata5m")
 
 
@@ -4159,6 +4458,8 @@ def main():
         run("scorers", scorers_phase, kernels, args.seed, scratch, graph)
         tr = run("train", train_phase, kernels, args.seed, scratch, graph)
         run("mesh", mesh_phase, kernels, args.seed, scratch, graph)
+        run("rgnn_mesh", rgnn_mesh_phase, kernels, args.seed, scratch,
+            graph)
         run("device_epoch", device_epoch_phase, kernels, args.seed, scratch,
             graph)
         if tr is not None:
@@ -4215,6 +4516,12 @@ def main():
         **{f"mesh_rank{r}": c for r, c in results["mesh"]["ranks"].items()},
         **{f"mesh_sparse_rank{r}": c
            for r, c in results["mesh"]["sparse_ranks"].items()},
+        **{f"rgnn_mesh_{name}_{who}": c
+           for name, run in results["rgnn_mesh"].items() if name != "dense"
+           for who, c in [("single", run["single_counts"])] + [
+               (f"rank{r}", c) for r, c in run["counts"].items()]},
+        **{f"rgnn_mesh_{label}": run["counts"]
+           for label, run in results["rgnn_mesh"]["dense"].items()},
         "device_epoch": de["counts"], "device_epoch_resume": de["resume_counts"],
         "device_epoch_training_loss": de["training_loss_counts"],
         "bf16": bf["counts"], "bf16_training_loss": bf["training_loss_counts"],

@@ -1,11 +1,13 @@
 """Dataset loading: triple splits, id maps, metadata, and lazy indexes
 (the port's own copy of ``kge_tpu/dataset.py``).
 
-Triples load as Nx3 int32 numpy arrays, entity/relation id and string
-maps from tab-separated files, per-dataset overrides from
-``dataset.yaml``, mtime-checked binary caches with atomic replacement,
-and a lazy index registry (see :mod:`kge_tpu_torch.indexing`). Arrays
-stay in host numpy; jobs move them to their device explicitly.
+Triples load as Nx3 int32 numpy arrays (parsed by the g++ host op
+``native.parse_triples``; numpy's parser where g++ is missing),
+entity/relation id and string maps from tab-separated files,
+per-dataset overrides from ``dataset.yaml``, mtime-checked binary caches
+with atomic replacement, and a lazy index registry (see
+:mod:`kge_tpu_torch.indexing`). Arrays stay in host numpy; jobs move
+them to their device explicitly.
 
 Cache files carry the port's own suffix (``<name>.torch.cache.pkl``):
 ``kge_tpu``'s caches pickle ``kge_tpu.indexing`` objects, and reading
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from kge_tpu_torch import native
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.indexing import create_default_index_functions
 from kge_tpu_torch.utils.misc import kge_base_dir
@@ -208,13 +211,8 @@ class Dataset(Configurable):
                 )
             path = os.path.join(self.folder, filename)
 
-            def build():
-                data = np.loadtxt(
-                    path, dtype=np.int64, usecols=(0, 1, 2), ndmin=2
-                )
-                return np.ascontiguousarray(data.astype(np.int32))
-
-            triples = self._cached(f"triples-{key}", [path], build)
+            triples = self._cached(f"triples-{key}", [path],
+                                   lambda: native.parse_triples(path))
             self.config.log(f"Loaded {len(triples)} {key} triples")
             self._triples[key] = triples
         return self._triples[key]

@@ -131,6 +131,21 @@ class Ctx:
             mask = mask[block]
         return torch.where(mask, x / keep, 0.0)
 
+    def dropout_at(self, x: torch.Tensor, rate: float, total: int,
+                   index: torch.Tensor) -> torch.Tensor:
+        """The dropout of rows ``index`` of a tensor of ``total`` rows
+        (the rest of its shape ``x``'s): the mask ``dropout`` would draw
+        for the whole tensor, at those rows (an R-GNN layer's row block
+        or edges under a mesh)."""
+        if not self.train or rate <= 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("this computation needs a generator in its Ctx")
+        keep = 1.0 - rate
+        mask = torch.rand((total, *x.shape[1:]), generator=self.generator,
+                          dtype=x.dtype, device=x.device) < keep
+        return torch.where(mask[index], x / keep, 0.0)
+
 
 class BatchShard(NamedTuple):
     """Rows ``[lo, hi)`` of a part of ``total`` rows of the global

@@ -236,6 +236,20 @@ class LookupEmbedder(KgeEmbedder):
             emb, self.dropout_rate,
             replicated=ctx.is_replicated(indexes)), ctx)
 
+    def embed_block(self, ctx: Ctx, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's row block of the padded table as ``embed_all``
+        reads it (its dropout mask drawn over all ``vocab_size`` rows, at
+        ``rows``, the block's row ids clamped into the vocabulary; rows
+        past it are zeros): the first R-GNN layer's input on its halo
+        route. Its gradient is the block's own."""
+        if self.mesh is None:
+            raise ValueError("embed_block reads a row block of a mesh")
+        table = self.weights
+        if self.whole is not None:
+            table = self.whole[self.row_lo:self.row_lo + table.shape[0]]
+        return self._cast(ctx.dropout_at(table, self.dropout_rate,
+                                         self.vocab_size, rows), ctx)
+
     def embed_all(self, ctx: Ctx, padded: bool = False) -> torch.Tensor:
         """All embeddings: a view of the table's first ``vocab_size`` rows
         (with ``padded``, the whole padded table); under a mesh, of the

@@ -17,9 +17,21 @@ The params tree is ``kge_tpu``'s: ``{entity_embedder, relation_embedder,
 scorer, encoder: {layers: [...]}}``; the batch-norm statistics of the
 layers are model state under ``f"{layer name}_bn"``.
 
-Under a device mesh (``tpu.mesh``) the model raises
-``NotImplementedError``: ``kge_tpu``'s edge-partitioned halo exchange is
-not ported yet.
+Under a device mesh (``tpu.mesh``) with a ``model`` axis above 1 the
+encoder takes ``kge_tpu``'s two routes (``prepare_job`` hands it the
+mesh): hoistable or attention message-passing layers with
+``neighbor_block_size > 0`` run on this rank's row block of the nodes
+and exchange only the boundary rows (the halo route, whose layout
+``build_halo_layout`` makes from the edge list, rebuilt with every
+graph); every other encoder runs on the whole tables, gathered, on every
+rank (the gathered route). The decoder reads the encoded entity table
+through one gather of the last layer's output.
+
+``tpu.gnn_dense_adjacency`` (``Rgnn.dense_adjacency_modes``,
+``RgnnEncoder._maybe_build_dense``) keeps ``kge_tpu``'s rules: ``auto``
+engages on the card within ``gnn_dense_adjacency_limit_bytes`` (never on
+the host, never under a model axis above 1), ``always`` raises where the
+adjacency does not apply, and the matrix is stored in float32 or bf16.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kge_tpu_torch import native
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models.api import Ctx, KgeBase, KgeModel
@@ -40,7 +53,15 @@ from kge_tpu_torch.models.rgnn.layers import (
     RgcnLayer,
     WeightedGCNLayer,
 )
+from kge_tpu_torch.ops.segment import degree_norm
+from kge_tpu_torch.parallel import distributed as dist
+from kge_tpu_torch.parallel import mesh as mesh_lib
+from kge_tpu_torch.parallel.collectives import gather_table
 from kge_tpu_torch.utils.misc import pow2_bucket
+
+#: above this many [N x R] elements ``sub``'s relation-term matrix is not
+#: made, and the dense adjacency does not apply (``kge_tpu``'s bound)
+C_MATRIX_MAX_ELEMENTS = 64 * 1024 * 1024
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -64,10 +85,13 @@ def build_graph_buffers(triples: np.ndarray, num_relations: int,
     Each half is stably sorted by its aggregation node (``edge_index[0]``);
     ``edge_orig`` maps each edge position to its triple, so edge dropout
     keeps a triple's two edges together. ``halves_sorted`` marks the sort
-    (its presence is what ``kge_tpu`` reads)."""
+    (its presence is what ``kge_tpu`` reads); the sort is the g++ host
+    op's stable counting sort (``native.counting_argsort``)."""
     fwd = triples[:, [0, 2]].T.astype(np.int32)
-    order_fwd = np.argsort(fwd[0], kind="stable")
-    order_inv = np.argsort(fwd[1], kind="stable")
+    buckets = num_entities if num_entities is not None else (
+        int(fwd.max()) + 1 if fwd.size else 1)
+    order_fwd = native.counting_argsort(fwd[0], buckets)
+    order_inv = native.counting_argsort(fwd[1], buckets)
     E1 = fwd.shape[1]
     edge_index = np.empty((2, 2 * E1), np.int32)
     edge_index[0, :E1] = fwd[0][order_fwd]
@@ -120,6 +144,79 @@ def build_graph_buffers(triples: np.ndarray, num_relations: int,
     return graph
 
 
+def mode_edge_set(edge_index: np.ndarray, key: str, num_nodes: int):
+    """(src, nbr) of an edge set by ``kge_tpu``'s name: ``in`` (the
+    first half of the edges), ``out`` (the second), ``single`` (all) or
+    ``single_with_loops`` (all, then a self-loop a node)."""
+    E = edge_index.shape[1]
+    if key == "in":
+        return edge_index[0, :E // 2], edge_index[1, :E // 2]
+    if key == "out":
+        return edge_index[0, E // 2:], edge_index[1, E // 2:]
+    if key == "single":
+        return edge_index[0], edge_index[1]
+    loop = np.arange(num_nodes, dtype=edge_index.dtype)
+    return (np.concatenate([edge_index[0], loop]),
+            np.concatenate([edge_index[1], loop]))
+
+
+def build_halo_layout(graph: Dict[str, Any], keys: Tuple[str, ...], P: int,
+                      num_nodes_padded: int,
+                      num_nodes: int) -> Dict[str, Any]:
+    """The edge-partitioned layout of the mesh GNN on the edge list
+    (``kge_tpu``'s ``build_halo_structures`` without its row blocks).
+
+    Block p of ``P`` owns nodes ``[p*S, (p+1)*S)``, ``S =
+    num_nodes_padded / P``, and the edges whose aggregation node it
+    owns. For each edge set in ``keys``: ``send`` [P, P, rmax], the rows
+    block q sends to block p (local ids on q, the unique remote
+    neighbors of p's edges that q owns, ascending, padded with 0 to the
+    widest set, rmax); for each block p, ``pos`` (its edges' positions
+    in the edge set, in order), ``src`` (their aggregation nodes as
+    local rows) and ``slot`` (their neighbors in p's gather table: a
+    local row as it is, block q's i-th boundary row at ``S + q*rmax +
+    i``)."""
+    S = num_nodes_padded // P
+    out: Dict[str, Any] = {"S": S, "P": P}
+    for key in keys:
+        src, nbr = mode_edge_set(graph["edge_index"], key, num_nodes)
+        src, nbr = src.astype(np.int64), nbr.astype(np.int64)
+        owner = src // S
+        order = native.counting_argsort(owner.astype(np.int32), P)
+        bounds = np.concatenate(
+            [[0], np.cumsum(np.bincount(owner, minlength=P))])
+        sends = [[np.zeros(0, np.int64)] * P for _ in range(P)]
+        blocks = []
+        for p in range(P):
+            pos = order[bounds[p]:bounds[p + 1]]
+            nbr_p = nbr[pos]
+            remote = np.unique(nbr_p[nbr_p // S != p])
+            owners = remote // S
+            for q in range(P):
+                if q != p:
+                    sends[q][p] = remote[owners == q] % S
+            blocks.append((pos, nbr_p, remote, owners))
+        rmax = max(1, max(len(sends[q][p]) for q in range(P)
+                          for p in range(P)))
+        send = np.zeros((P, P, rmax), np.int64)
+        for q in range(P):
+            for p in range(P):
+                send[q, p, :len(sends[q][p])] = sends[q][p]
+        out[f"{key}_send"] = send
+        out[f"{key}_pos"], out[f"{key}_src"], out[f"{key}_slot"] = [], [], []
+        for p, (pos, nbr_p, remote, owners) in enumerate(blocks):
+            # the rank of each remote row among its owner's
+            first = np.searchsorted(owners, owners, side="left")
+            remote_slot = S + owners * rmax + np.arange(len(remote)) - first
+            slot = nbr_p - p * S
+            far = nbr_p // S != p
+            slot[far] = remote_slot[np.searchsorted(remote, nbr_p[far])]
+            out[f"{key}_pos"].append(pos)
+            out[f"{key}_src"].append(src[pos] - p * S)
+            out[f"{key}_slot"].append(slot)
+    return out
+
+
 class Rgnn(KgeBase):
     """Stack of R-GNN layers (reference: rgnn_encoder.py:1002-1205)."""
 
@@ -132,6 +229,19 @@ class Rgnn(KgeBase):
             raise ValueError(f"invalid activation {act_key}")
         self.activation = _ACTIVATIONS[act_key]
         self.emb_entity_dropout = self.get_option("emb_entity_dropout")
+        try:
+            self.neighbor_block_size = int(
+                self.get_option("neighbor_block_size"))
+        except KeyError:
+            self.neighbor_block_size = 16
+        if self.neighbor_block_size > 0:
+            config.log(
+                f"{configuration_key}.neighbor_block_size "
+                f"{self.neighbor_block_size} is ignored as a layout: "
+                "kge_tpu_torch aggregates over the edge list (gather + "
+                "index_add_), which gives kge_tpu's row blocks' numbers up "
+                "to summation order; it still selects the halo route under "
+                "a mesh and the dense adjacency's edge sets, as in kge_tpu")
         self.layer_type = self.check_option(
             "layer_type", ["message_passing", "torch_rgcn", "weighted_gcn"]
         )
@@ -185,33 +295,47 @@ class Rgnn(KgeBase):
             for l in self.layers
         )
 
-    def check_tpu_layouts(self):
-        """``kge_tpu``'s TPU-only aggregation layouts: their knobs are
-        logged as ignored (the edge-list aggregation gives the same
-        numbers up to summation order), the bf16 dense adjacency raises
-        (it changes the numbers), and ``always`` raises where
-        ``kge_tpu`` finds the dense adjacency inapplicable."""
+    @property
+    def row_block_modes(self) -> Tuple[str, ...]:
+        """``kge_tpu``'s names of the edge sets its message-passing
+        layers aggregate over in row blocks (none with
+        ``neighbor_block_size`` 0, none for per-relation propagation):
+        the edge sets of the dense adjacency and of the halo layout."""
+        if self.neighbor_block_size <= 0:
+            return ()
+        keys = set()
+        for l in self.layers:
+            if isinstance(l, MessagePassingLayer):
+                keys.update(k for k in map(l.rb_key, l.modes) if k)
+        return tuple(sorted(keys))
+
+    @property
+    def halo_route(self) -> bool:
+        """Whether the layers take the halo route under a model axis
+        above 1: ``kge_tpu``'s hoistable and attention message-passing
+        layers with row blocks (the layers of an encoder share these
+        options, so they share the route; the others take the gathered
+        route)."""
+        return self.neighbor_block_size > 0 and all(
+            isinstance(l, MessagePassingLayer)
+            and not l.propagation.startswith("per_relation")
+            and (l.hoistable or l.attention) for l in self.layers)
+
+    def dense_adjacency_modes(self, device_type: str) -> Tuple[str, ...]:
+        """``kge_tpu``'s edge sets whose aggregation runs as one dense
+        ``[N, N] @ [N, d]`` product (``tpu.gnn_dense_adjacency``): a
+        static per-edge scale (hoistable composition, no attention, no
+        learned relation weight, no edge or self-edge dropout) and for
+        ``sub`` a relation-term matrix of at most 64M elements;
+        ``always`` raises where that fails, ``auto`` engages on the card
+        only, within ``gnn_dense_adjacency_limit_bytes``."""
         config = self.config
-        try:
-            block = int(self.get_option("neighbor_block_size"))
-        except KeyError:
-            block = 0
-        if block > 0:
-            config.log(
-                f"{self.configuration_key}.neighbor_block_size {block} is "
-                "ignored: kge_tpu_torch aggregates over the edge list "
-                "(gather + index_add_); kge_tpu's row blocks give the same "
-                "numbers up to summation order")
         mode = config.check("tpu.gnn_dense_adjacency",
                             ["auto", "always", "never"])
         dtype = config.check("tpu.gnn_dense_adjacency_dtype",
                              ["float32", "bfloat16"])
-        if mode != "always":
-            if mode == "auto" and dtype != "float32":
-                config.log(f"tpu.gnn_dense_adjacency_dtype {dtype} is "
-                           "ignored under auto (kge_tpu engages it on a TPU "
-                           "only)")
-            return
+        if mode == "never" or not self.layers:
+            return ()
         reasons = []
         for l in self.layers:
             if not isinstance(l, MessagePassingLayer):
@@ -233,23 +357,25 @@ class Rgnn(KgeBase):
                                "per-step")
             if l.composition_name == "sub":
                 R1 = l.num_relations + 1
-                if l.num_entities * R1 > 64 * 1024 * 1024:
+                if l.num_entities * R1 > C_MATRIX_MAX_ELEMENTS:
                     reasons.append(
                         f"{l.name}: 'sub' needs the C-matrix relation "
                         f"term, too large at N*R = {l.num_entities * R1}")
         if reasons:
-            raise ValueError(
-                "tpu.gnn_dense_adjacency=always is not applicable here: "
-                + "; ".join(reasons))
-        if dtype != "float32":
-            raise NotImplementedError(
-                "tpu.gnn_dense_adjacency with bfloat16 is not yet ported to "
-                "kge_tpu_torch (it changes the numbers; bf16 compute comes "
-                "with tpu.compute_dtype)")
-        config.log(
-            "tpu.gnn_dense_adjacency always is ignored: kge_tpu_torch "
-            "aggregates over the edge list, which gives the float32 dense "
-            "adjacency's numbers up to summation order")
+            if mode == "always":
+                raise ValueError(
+                    "tpu.gnn_dense_adjacency=always is not applicable here: "
+                    + "; ".join(reasons))
+            return ()
+        if mode == "auto":
+            if device_type == "cpu":
+                return ()
+            N = self.layers[0].num_entities
+            size = 4 if dtype == "float32" else 2
+            if N * N * size > int(config.get(
+                    "tpu.gnn_dense_adjacency_limit_bytes")):
+                return ()
+        return self.row_block_modes
 
     def init_state(self) -> Dict[str, Any]:
         state: Dict[str, Any] = {}
@@ -258,16 +384,27 @@ class Rgnn(KgeBase):
         return state
 
     def forward(self, x, r, graph, ctx: Ctx):
+        """The layers over the graph. On the halo route (``graph["halo"]``)
+        ``x`` is this rank's row block of the padded table; the output is
+        the whole ``[N, d]`` table either way."""
         # bf16 embeddings (tpu.compute_dtype) meet every layer's float32
         # weights first, a product jnp promotes: the layers run in float32
         x, r = (t.float() if t.dtype == torch.bfloat16 else t for t in (x, r))
+        halo = graph.get("halo")
+        N = self.dataset.num_entities()
         for layer in self.layers:
             if self.layer_type == "torch_rgcn":
                 x = self.activation(x)  # rgcn activates before the layer
             x, r = layer(x, r, graph, ctx)
             if self.layer_type in ("message_passing", "weighted_gcn"):
                 x = self.activation(x)
-            x = ctx.dropout(x, self.emb_entity_dropout)
+            if halo is not None:
+                x = ctx.dropout_at(x, self.emb_entity_dropout, N,
+                                   halo["rows"])
+            else:
+                x = ctx.dropout(x, self.emb_entity_dropout, replicated=True)
+        if halo is not None:
+            x = gather_table(x, halo["group"], halo["index"])[:N]
         return x, r
 
 
@@ -292,18 +429,23 @@ class RgnnEncoder(KgeBase):
                     init_for_load_only=init_for_load_only)
         self.__dict__["rgnn"] = rgnn
         self.layers = rgnn.layers
-        rgnn.check_tpu_layouts()
         self.use_stale_embeddings = self.get_option("use_stale_embeddings")
         self.device = torch.device(device)
+        #: the mesh of the halo route (set by ``prepare_job``)
+        self._mesh = None
+        #: the halo layout of every block (``build_halo_layout``)
+        self.halo_layout: Optional[Dict[str, Any]] = None
+        self._graph_np: Dict[str, Any] = {}
         self._graph: Dict[str, Any] = {}
         self.set_graph(None)
 
     def set_graph(self, triples: Optional[np.ndarray]):
-        """(Re)build the edge buffers on the device; None means the full
-        training split."""
+        """(Re)build the edge buffers on the device, the halo layout under
+        a mesh and the dense adjacency where it engages; None means the
+        full training split."""
         if triples is None:
             triples = self.dataset.split(self.config.get("train.split"))
-        graph = build_graph_buffers(
+        self._graph_np = build_graph_buffers(
             np.asarray(triples), self.dataset.num_relations(),
             self.rgnn.needs_rel_buckets,
             num_entities=self.dataset.num_entities(),
@@ -312,8 +454,88 @@ class RgnnEncoder(KgeBase):
         self._graph = {
             k: v if isinstance(v, int) else torch.as_tensor(
                 v.astype(np.int64), device=self.device)
-            for k, v in graph.items()
+            for k, v in self._graph_np.items()
         }
+        self._maybe_build_halo()
+        self._maybe_build_dense()
+
+    def _maybe_build_halo(self):
+        """The halo route's layout of this rank's block (``graph["halo"]``)
+        under a mesh with a model axis above 1, where a layer takes it."""
+        self._graph.pop("halo", None)
+        self.halo_layout = None
+        if self._mesh is None:
+            return
+        mesh, N = self._mesh, self.dataset.num_entities()
+        P, p = mesh.shape["model"], mesh.model_index
+        keys = self.rgnn.row_block_modes
+        if self.rgnn.halo_route:
+            layout = build_halo_layout(
+                self._graph_np, keys, P,
+                self.entity_embedder.padded_vocab_size, N)
+            S, dev = layout["S"], self.device
+            ids = torch.arange(p * S, (p + 1) * S, device=dev)
+            self._graph["halo"] = {
+                "group": mesh.group("model"), "index": p, "S": S,
+                "num_nodes": N, "rows": ids.clamp(max=N - 1),
+                "valid": (ids < N).to(torch.float32),
+                **{part: {k: torch.as_tensor(
+                    layout[f"{k}_{part}"][p], dtype=torch.int64, device=dev)
+                    for k in keys}
+                   for part in ("send", "pos", "src", "slot")},
+            }
+            self.halo_layout = layout
+        if not getattr(self, "_route_logged", False):
+            self._route_logged = True
+            if self.halo_layout is None:
+                self.config.log(f"R-GNN encoder under a model axis of {P}: "
+                                "the gathered route")
+            else:
+                _, how = dist.all_to_all_route(self.device.type)
+                widths = {k: layout[f"{k}_send"].shape[2] for k in keys}
+                self.config.log(
+                    f"R-GNN encoder under a model axis of {P}: the halo "
+                    f"route ({P} blocks of {layout['S']} rows, boundary "
+                    f"widths {widths}; all_to_all: {how})")
+
+    def _maybe_build_dense(self):
+        """The dense ``[N, N]`` adjacency of each edge set where it engages
+        (``Rgnn.dense_adjacency_modes``; none under a model axis above
+        1), built on the device: the edges' scales (the degree norm over
+        all-ones masks, or ones) summed into a float32 matrix
+        (``index_put_`` with accumulation), stored in
+        ``tpu.gnn_dense_adjacency_dtype``, as ``kge_tpu`` builds it."""
+        for key in [k for k in self._graph if k.startswith("dense_")]:
+            del self._graph[key]
+        keys = self.rgnn.dense_adjacency_modes(self.device.type)
+        mesh = self._mesh or mesh_lib.active()
+        if not keys or (mesh is not None and mesh.shape["model"] > 1):
+            return
+        N = self.dataset.num_entities()
+        dtype = (torch.float32 if self.config.get(
+            "tpu.gnn_dense_adjacency_dtype") == "float32" else torch.bfloat16)
+        use_norm = any(getattr(l, "use_edge_norm", False)
+                       for l in self.layers)
+        for key in keys:
+            src, nbr = (torch.as_tensor(a.astype(np.int64), device=self.device)
+                        for a in mode_edge_set(self._graph_np["edge_index"],
+                                               key, N))
+            ones = torch.ones(src.shape[0], device=self.device)
+            scale = degree_norm(src, nbr, ones, N) if use_norm else ones
+            A = torch.zeros((N, N), device=self.device)
+            A.index_put_((src, nbr), scale, accumulate=True)
+            self._graph[f"dense_{key}"] = A.to(dtype)
+        self.config.log(f"Using the dense {N} x {N} adjacency "
+                        f"({str(dtype)[6:]}) of {', '.join(keys)}")
+
+    def prepare_job(self, job):
+        """A training job's mesh with a model axis above 1 puts the
+        layers that can take it on the halo route."""
+        mesh = getattr(job, "mesh", None)
+        if mesh is not None and mesh.shape["model"] > 1:
+            self._mesh = mesh
+            self._maybe_build_halo()
+            self._maybe_build_dense()
 
     def graph(self) -> Dict[str, Any]:
         return self._graph
@@ -328,7 +550,11 @@ class RgnnEncoder(KgeBase):
         cache_key = f"{self.configuration_key}.encoded"
         if self.use_stale_embeddings and cache_key in ctx.cache:
             return ctx.cache[cache_key]
-        x = self.entity_embedder.embed_all(ctx)
+        halo = self._graph.get("halo")
+        if halo is not None:
+            x = self.entity_embedder.embed_block(ctx, halo["rows"])
+        else:
+            x = self.entity_embedder.embed_all(ctx)
         r = self.relation_embedder.embed_all(ctx)
         x, r = self.rgnn(x, r, self._graph, ctx)
         if not self.reciprocal_scorer:
@@ -349,14 +575,6 @@ class KgeRgnnModel(KgeModel):
                  generator: Optional[torch.Generator] = None,
                  init_for_load_only: bool = False):
         self._init_configuration(config, configuration_key)
-        from kge_tpu_torch.parallel import mesh as mesh_lib
-
-        if mesh_lib.active() is not None:
-            raise NotImplementedError(
-                "R-GNN encoders under a device mesh (tpu.mesh) are not yet "
-                "ported to kge_tpu_torch: kge_tpu's edge-partitioned halo "
-                "exchange (kge_tpu/models/rgnn/layers.py _halo_rowblock, "
-                "encoder.py edge-partitioned layout) comes in a later slice")
         self.orig_num_relations = dataset.num_relations()
         # embedders over the doubled relation vocabulary (inverse edges)
         alt_dataset = dataset.shallow_copy()
@@ -405,6 +623,10 @@ class KgeRgnnModel(KgeModel):
 
     def set_graph(self, triples):
         self.encoder.set_graph(triples)
+
+    def prepare_job(self, job, **kwargs):
+        super().prepare_job(job, **kwargs)
+        self.encoder.prepare_job(job)
 
     # ------------------------------------------------------------------ scoring
 

@@ -18,12 +18,32 @@ names of ``kge_tpu``'s params dict (``w_in_h0``, ``loop_rel``, ...):
 - ``WeightedGCNLayer`` (W-GCN/SACN): the per-relation scalar alpha
   collapses the relational adjacency to one symmetric matrix.
 
-``kge_tpu``'s TPU layouts (padded-CSR row blocks, the dense adjacency,
-the sharded halo exchange) are not ported: the layers aggregate over the
-edge list, which gives the numbers of ``kge_tpu``'s message path (and of
-its row-block path up to summation order). Batch-norm running statistics
-are model state, read from ``Ctx.state`` and written to ``Ctx.updates``
-under ``f"{name}_bn"``.
+The layers aggregate over the edge list, which gives the numbers of
+``kge_tpu``'s message path (and of its padded-CSR row blocks up to
+summation order; row blocks are not ported). Two of ``kge_tpu``'s
+layouts are:
+
+- the dense adjacency (``tpu.gnn_dense_adjacency``): a hoistable mode's
+  aggregation as one ``[N, N] @ [N, d]`` product against a per-graph
+  matrix with the degree norm in it (``graph["dense_<key>"]``, built by
+  the encoder), ``sub``'s relation term as ``C @ (r @ W)``
+  (``_dense_aggregate``);
+- under a device mesh with a ``model`` axis above 1, the halo route
+  (``_halo_forward``, after ``kge_tpu``'s ``_halo_rowblock`` and
+  ``_halo_attention``): the layer runs on this rank's row block of the
+  nodes and the block's edges (``graph["halo"]``, built by the
+  encoder); a hoistable mode exchanges the boundary rows of ``x @ W``,
+  attention the raw ``x`` once an edge set for all heads, each in one
+  ``all_to_all`` (``halo_exchange``). Edge masks, degree norms and
+  dropout masks are drawn and computed over the whole graph from the
+  generator every rank shares, then taken at the block's rows and
+  edges, so a mesh step computes one process's. Every other layer takes
+  the gathered route: the whole tables on every rank, the layer as on
+  one process.
+
+Batch-norm running statistics are model state, read from ``Ctx.state``
+and written to ``Ctx.updates`` under ``f"{name}_bn"``; on the halo route
+they are the sums over the model group of the blocks' real rows.
 """
 
 from __future__ import annotations
@@ -35,8 +55,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from kge_tpu_torch.models.api import Ctx
-from kge_tpu_torch.models.conve import batch_norm
 from kge_tpu_torch.models.init import initialize
+from kge_tpu_torch.parallel.collectives import (
+    data_sum, enter_blocks, halo_exchange,
+)
 from kge_tpu_torch.ops.segment import (
     composition_fn,
     degree_norm,
@@ -60,13 +82,37 @@ def init_weight(generator: torch.Generator, shape, init_name: str,
     return initialize(generator, shape, init_name, {})
 
 
-def batch_norm_affine(x: torch.Tensor, layer: nn.Module, state_key: str,
-                      ctx: Ctx) -> torch.Tensor:
-    """BatchNorm1d with torch semantics (unbiased running variance,
-    momentum 0.1), its affine scale and bias the layer's ``bn_scale`` and
-    ``bn_bias``."""
-    x = batch_norm(x, state_key, ctx, reduce_axes=(0,))
-    return x * layer.bn_scale + layer.bn_bias
+def batch_norm_affine(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, state_key: str, ctx: Ctx,
+                      block: Optional[Dict[str, Any]] = None,
+                      momentum: float = 0.1, eps: float = 1e-5
+                      ) -> torch.Tensor:
+    """BatchNorm1d over the nodes with torch semantics (the biased
+    variance normalizes, the unbiased one goes into the running
+    statistics, momentum 0.1), then ``* scale + bias``. With ``block``
+    (the halo route's ``graph["halo"]``) ``x`` is this rank's row block
+    and the statistics are the sums over the model group of the blocks'
+    real rows (padding rows left out, ``valid``)."""
+    state = ctx.state[state_key]
+    if ctx.train:
+        if block is None:
+            n = x.shape[0]
+            mean = torch.mean(x, dim=0)
+            var = torch.var(x, dim=0, correction=0)
+        else:
+            n, group = block["num_nodes"], block["group"]
+            valid = block["valid"][:, None]
+            mean = data_sum(torch.sum(x * valid, dim=0), group) / n
+            var = data_sum(torch.sum(((x - mean) * valid) ** 2, dim=0),
+                           group) / n
+        unbiased = var.detach() * n / max(n - 1, 1)
+        ctx.updates[state_key] = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+            "var": (1 - momentum) * state["var"] + momentum * unbiased,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+    return (x - mean) / torch.sqrt(var + eps) * scale + bias
 
 
 def keep_mask(ctx: Ctx, keep: float, shape, device, dtype) -> torch.Tensor:
@@ -289,9 +335,12 @@ class MessagePassingLayer(RgnnLayerBase):
     # ------------------------------------------------------------------ forward
 
     def _edge_messages(self, x, r_full, nbr, types, scale, weight,
-                       head: int, is_loop: bool) -> torch.Tensor:
+                       head: int, is_loop: bool,
+                       params=None) -> torch.Tensor:
         """Per-edge messages: compose, transform, weight, scale (the edge
-        norm or the keep-mask)."""
+        norm or the keep-mask). ``params``: the layer's parameters by
+        name (the halo route passes them through ``enter_blocks``)."""
+        p = self._parameters if params is None else params
         if self.hoistable:
             # transform the node/relation tables once, gather after
             xw = x @ weight
@@ -306,12 +355,59 @@ class MessagePassingLayer(RgnnLayerBase):
         else:
             # no composition reads h_i, the aggregation node's embedding
             h_j = x if is_loop else rows(x, nbr)
-            mw = (rows(getattr(self, f"w_msgweight_h{head}"), types)
+            mw = (rows(p[f"w_msgweight_h{head}"], types)
                   if self.message_weight else None)
             msg = self.composition(None, h_j, rows(r_full, types), mw) @ weight
         if self.learned_relation_weight and not is_loop:
-            msg = msg * rows(self.alpha, types)
+            msg = msg * rows(p["alpha"], types)
         return msg * scale[:, None]
+
+    def rb_key(self, mode: str) -> Optional[str]:
+        """``kge_tpu``'s name of a mode's edge set (its row blocks, dense
+        adjacency and halo layout): ``in``/``out``, ``single`` (all
+        edges) or ``single_with_loops`` (all edges and the self-loops);
+        None for the self-loop mode and per-relation propagation."""
+        if mode in ("in", "out"):
+            return mode
+        if mode != "":
+            return None
+        return "single" if self.self_edge_weight else "single_with_loops"
+
+    def _mode_edges(self, mode, graph, edge_mask, self_mask):
+        """(src, nbr, types, mask, is_loop) of a mode's whole edge set."""
+        edge_index, edge_type = graph["edge_index"], graph["edge_type"]
+        E, N = edge_index.shape[1], self.num_entities
+        if mode in ("in", "out"):
+            sl = slice(0, E // 2) if mode == "in" else slice(E // 2, E)
+            return (edge_index[0, sl], edge_index[1, sl], edge_type[sl],
+                    edge_mask[sl], False)
+        loop_idx = torch.arange(N, device=edge_index.device)
+        loop_types = torch.full((N,), self.num_relations,
+                                device=edge_index.device,
+                                dtype=edge_type.dtype)
+        if mode == "loop":
+            return loop_idx, loop_idx, loop_types, self_mask, True
+        # "": all edges; without a self-edge weight the loops ride along
+        if not self.self_edge_weight:
+            return (torch.cat([edge_index[0], loop_idx]),
+                    torch.cat([edge_index[1], loop_idx]),
+                    torch.cat([edge_type, loop_types]),
+                    torch.cat([edge_mask, self_mask]), False)
+        return edge_index[0], edge_index[1], edge_type, edge_mask, False
+
+    def _dense_aggregate(self, A, x, r_full, src, types, scale,
+                         weight) -> torch.Tensor:
+        """A hoistable mode's aggregation through its dense adjacency
+        ``A`` (the degree norm in it): ``A @ (x @ W)``, less ``sub``'s
+        relation term ``C @ (r @ W)`` with ``C[v, t]`` the summed scale
+        of ``v``'s edges of type ``t`` (``kge_tpu``'s
+        ``_row_block_aggregate`` dense path)."""
+        out = DenseAdjacencyMatmul.apply(A, x @ weight)
+        if self.composition_name == "sub":
+            N, R1 = self.num_entities, r_full.shape[0]
+            C = segment_sum(scale, src * R1 + types, N * R1).reshape(N, R1)
+            out = out - C @ (r_full @ weight)
+        return out
 
     def _per_relation_out(self, x, r_full, graph, edge_mask,
                           ctx: Ctx) -> torch.Tensor:
@@ -365,34 +461,15 @@ class MessagePassingLayer(RgnnLayerBase):
                            src.reshape(-1), N)
 
     def forward(self, x, r, graph, ctx: Ctx):
-        edge_index, edge_type = graph["edge_index"], graph["edge_type"]
-        E = edge_index.shape[1]
+        if "halo" in graph:  # the encoder's route (``Rgnn.halo_route``)
+            return self._halo_forward(x, r, graph, ctx)
+        E = graph["edge_index"].shape[1]
         N = self.num_entities
         if self.weight_decomposition == "relation_basis":
             r = self.relation_basis_weights @ self.basis_vectors
         r_full = torch.cat([r, self.loop_rel], dim=0)
         edge_mask, self_mask = self._edge_masks(ctx, E, x,
                                                 graph.get("edge_orig"))
-        loop_idx = torch.arange(N, device=x.device)
-        loop_types = torch.full((N,), r_full.shape[0] - 1, device=x.device,
-                                dtype=edge_type.dtype)
-
-        def mode_edges(mode):
-            """(src, nbr, types, mask, is_loop)."""
-            if mode in ("in", "out"):
-                sl = slice(0, E // 2) if mode == "in" else slice(E // 2, E)
-                return (edge_index[0, sl], edge_index[1, sl], edge_type[sl],
-                        edge_mask[sl], False)
-            if mode == "loop":
-                return loop_idx, loop_idx, loop_types, self_mask, True
-            # "": all edges; without a self-edge weight the loops ride along
-            if not self.self_edge_weight:
-                return (torch.cat([edge_index[0], loop_idx]),
-                        torch.cat([edge_index[1], loop_idx]),
-                        torch.cat([edge_type, loop_types]),
-                        torch.cat([edge_mask, self_mask]), False)
-            return edge_index[0], edge_index[1], edge_type, edge_mask, False
-
         num_modes = len(self.modes)
         head_outputs = []
         for head in range(self.num_heads):
@@ -405,55 +482,70 @@ class MessagePassingLayer(RgnnLayerBase):
                 continue
             per_mode = []
             for mode in self.modes:
-                src, nbr, types, mask, is_loop = mode_edges(mode)
+                src, nbr, types, mask, is_loop = self._mode_edges(
+                    mode, graph, edge_mask, self_mask)
                 scale = mask
                 if self.use_edge_norm and not is_loop:
                     scale = degree_norm(src, nbr, mask, N)
-                msg = self._edge_messages(
-                    x, r_full, nbr, types, scale,
-                    getattr(self, f"w_{mode}_h{head}"), head, is_loop)
-                if self.attention:
-                    per_mode.append((msg, src, mask))
-                    continue
-                agg = msg if is_loop else segment_sum(msg, src, N)
+                weight = getattr(self, f"w_{mode}_h{head}")
+                dense = graph.get(f"dense_{self.rb_key(mode)}")
+                if dense is not None and self.hoistable and not self.attention:
+                    agg = self._dense_aggregate(dense, x, r_full, src, types,
+                                                scale, weight)
+                else:
+                    msg = self._edge_messages(x, r_full, nbr, types, scale,
+                                              weight, head, is_loop)
+                    if self.attention:
+                        per_mode.append((msg, src, mask))
+                        continue
+                    agg = msg if is_loop else segment_sum(msg, src, N)
                 if not is_loop:
-                    agg = ctx.dropout(agg, self.prop_dropout)
+                    agg = ctx.dropout(agg, self.prop_dropout, replicated=True)
                 if self.propagation == "direction":
                     agg = agg / num_modes
                 per_mode.append(agg)
             if self.attention:
                 # RAGAT: an edge softmax per target node
-                messages = torch.cat([m for m, _, _ in per_mode])
-                dst = torch.cat([s for _, s, _ in per_mode])
-                emask = torch.cat([m for _, _, m in per_mode])
-                att_w = getattr(self, f"w_att_h{head}")
-                scores = -F.leaky_relu((messages @ att_w).reshape(-1),
-                                       negative_slope=0.2)
-                # dropped edges leave the softmax entirely (the reference
-                # removes them from edge_index): no exp(0) in the
-                # denominator
-                edge_exp = (torch.exp(scores) * (emask > 0))[:, None]
-                entity_exp = segment_sum(edge_exp, dst, N)
-                entity_exp = torch.where(entity_exp == 0.0, 1.0, entity_exp)
-                # the propagation dropout falls on the numerator only
-                edge_exp = ctx.dropout(edge_exp, self.prop_dropout)
-                weighted = segment_sum(edge_exp * messages, dst, N)
-                head_outputs.append(weighted / entity_exp)
+                head_outputs.append(self._attention(
+                    per_mode, getattr(self, f"w_att_h{head}"), N,
+                    lambda e: ctx.dropout(e, self.prop_dropout,
+                                          replicated=True)))
             else:
-                out = per_mode[0]
-                for m in per_mode[1:]:
-                    out = out + m
-                head_outputs.append(out)
+                head_outputs.append(sum(per_mode[1:], per_mode[0]))
+        return self._finish(head_outputs, r_full, ctx, self._parameters)
 
+    def _attention(self, per_mode, att_w, num_nodes, dropout):
+        """The edge softmax over the modes' (messages, target nodes,
+        masks): ``dropout`` falls on the numerator only."""
+        messages = torch.cat([m for m, _, _ in per_mode])
+        dst = torch.cat([s for _, s, _ in per_mode])
+        emask = torch.cat([m for _, _, m in per_mode])
+        scores = -F.leaky_relu((messages @ att_w).reshape(-1),
+                               negative_slope=0.2)
+        # dropped edges leave the softmax entirely (the reference removes
+        # them from edge_index): no exp(0) in the denominator
+        edge_exp = (torch.exp(scores) * (emask > 0))[:, None]
+        entity_exp = segment_sum(edge_exp, dst, num_nodes)
+        entity_exp = torch.where(entity_exp == 0.0, 1.0, entity_exp)
+        weighted = segment_sum(dropout(edge_exp) * messages, dst, num_nodes)
+        return weighted / entity_exp
+
+    def _finish(self, head_outputs, r_full, ctx: Ctx, params,
+                block: Optional[Dict[str, Any]] = None):
+        """Heads averaged (attention) or summed, bias, batch norm; the
+        relation transform (which drops the loop relation row)."""
         out = (head_outputs[0] / self.num_heads if self.attention
                else head_outputs[0])
         for h in head_outputs[1:]:
             out = out + h / self.num_heads
         if self.bias_:
-            out = out + self.bias
+            out = out + params["bias"]
         if not self.propagation.startswith("per_relation"):
-            out = batch_norm_affine(out, self, f"{self.name}_bn", ctx)
-        # relation transform (drops the loop relation row)
+            out = batch_norm_affine(out, params["bn_scale"],
+                                    params["bn_bias"], f"{self.name}_bn",
+                                    ctx, block)
+        if block is not None:
+            out = out * block["valid"][:, None]
         if self.rel_transformation == "self":
             rel = r_full[:-1]
         elif self.rel_transformation == "linear":
@@ -463,6 +555,122 @@ class MessagePassingLayer(RgnnLayerBase):
                 f"rel_transformation {self.rel_transformation}"
             )
         return out, rel
+
+    #: parameters read by the relation transform alone (replicated)
+    _RELATION_PARAMS = ("loop_rel", "w_rel", "basis_vectors",
+                        "relation_basis_weights")
+
+    def _halo_forward(self, x, r, graph, ctx: Ctx):
+        """The layer on this rank's row block ``x`` ([S, d]) of the nodes
+        and the block's edges (``graph["halo"]``): one process's numbers
+        at the block's rows, the boundary rows of the other blocks by
+        ``halo_exchange``. Masks and degree norms come from the whole
+        graph; the weights and relations enter through ``enter_blocks``
+        (each rank's gradient covers its rows)."""
+        halo = graph["halo"]
+        group, S, N = halo["group"], halo["S"], self.num_entities
+        E = graph["edge_index"].shape[1]
+        if self.weight_decomposition == "relation_basis":
+            r = self.relation_basis_weights @ self.basis_vectors
+        r_full = torch.cat([r, self.loop_rel], dim=0)
+        edge_mask, self_mask = self._edge_masks(ctx, E, x,
+                                                graph.get("edge_orig"))
+        names = [n for n in self._parameters
+                 if n not in self._RELATION_PARAMS]
+        entered = enter_blocks(
+            [r_full] + [self._parameters[n] for n in names], group)
+        rb, p = entered[0], dict(zip(names, entered[1:]))
+        block_rows, valid = halo["rows"], halo["valid"]
+        block_ids = torch.arange(S, device=x.device)
+        loop_types = torch.full((S,), rb.shape[0] - 1, device=x.device,
+                                dtype=graph["edge_type"].dtype)
+        self_block = self_mask[block_rows] * valid
+        num_modes = len(self.modes)
+        tables: Dict[str, torch.Tensor] = {}  # raw x a key, all heads
+        head_outputs = []
+        for head in range(self.num_heads):
+            per_mode, positions, offset = [], [], 0
+            for mode in self.modes:
+                weight = p[f"w_{mode}_h{head}"]
+                key = self.rb_key(mode)
+                if key is None:  # the block's self-loops
+                    dst, slot, types, scale = (block_ids, block_ids,
+                                               loop_types, self_block)
+                    total, where = N, block_rows
+                else:
+                    src, nbr, types, mask, _ = self._mode_edges(
+                        mode, graph, edge_mask, self_mask)
+                    if self.use_edge_norm:
+                        mask = degree_norm(src, nbr, mask, N)
+                    pos = halo["pos"][key]
+                    dst, slot = halo["src"][key], halo["slot"][key]
+                    types, scale = types[pos], mask[pos]
+                    total, where = src.shape[0], pos
+                if self.attention:
+                    tab = x
+                    if key is not None:
+                        if key not in tables:
+                            tables[key] = torch.cat([x, halo_exchange(
+                                x, halo["send"][key], group)])
+                        tab = tables[key]
+                    msg = self._edge_messages(tab, rb, slot, types, scale,
+                                              weight, head, key is None, p)
+                    per_mode.append((msg, dst, scale))
+                    positions.append(offset + where)
+                    offset += total
+                    continue
+                xw = x @ weight
+                if key is None:
+                    msg = xw
+                    if self.composition_name == "sub":
+                        msg = msg - (rb[-1] @ weight)[None, :]
+                    agg = msg * scale[:, None]
+                else:
+                    tab = torch.cat([xw, halo_exchange(
+                        xw, halo["send"][key], group)])
+                    msg = rows(tab, slot)
+                    if self.composition_name == "sub":
+                        msg = msg - rows(rb @ weight, types)
+                    if self.learned_relation_weight:
+                        msg = msg * rows(p["alpha"], types)
+                    agg = segment_sum(msg * scale[:, None], dst, S)
+                    agg = ctx.dropout_at(agg, self.prop_dropout, N,
+                                         block_rows)
+                if self.propagation == "direction":
+                    agg = agg / num_modes
+                per_mode.append(agg)
+            if self.attention:
+                where = torch.cat(positions)
+                head_outputs.append(self._attention(
+                    per_mode, p[f"w_att_h{head}"], S,
+                    lambda e: ctx.dropout_at(e, self.prop_dropout, offset,
+                                             where)))
+            else:
+                head_outputs.append(sum(per_mode[1:], per_mode[0]))
+        return self._finish(head_outputs, r_full, ctx, p, halo)
+
+
+class DenseAdjacencyMatmul(torch.autograd.Function):
+    """``A.float() @ xw`` in row chunks of ``A`` (a bf16 ``A`` is never
+    upcast whole); backward ``A.T @ g`` likewise. ``A`` is a constant."""
+
+    @staticmethod
+    def forward(ctx, A, xw):
+        ctx.save_for_backward(A)
+        step = max(1, (1 << 26) // max(A.shape[1], 1))
+        return torch.cat([A[i:i + step].float() @ xw
+                          for i in range(0, A.shape[0], step)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (A,) = ctx.saved_tensors
+        step = max(1, (1 << 26) // max(A.shape[1], 1))
+        out = None
+        for i in range(0, A.shape[0], step):
+            part = A[i:i + step].float().T @ grad[i:i + step]
+            out = part if out is None else out + part
+        return None, out
+
 
 
 class RgcnLayer(RgnnLayerBase):
@@ -605,5 +813,6 @@ class WeightedGCNLayer(RgnnLayerBase):
         out = out + segment_sum(rows(xw, src) * alpha[:, None], dst, N)
         if self.bias_:
             out = out + self.bias
-        out = batch_norm_affine(out, self, f"{self.name}_bn", ctx)
+        out = batch_norm_affine(out, self.bn_scale, self.bn_bias,
+                                f"{self.name}_bn", ctx)
         return out, r

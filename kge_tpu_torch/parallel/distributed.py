@@ -14,18 +14,19 @@ others instead of hanging them.
 The backend: ``gloo`` on the host; on the card ``nccl`` where every
 rank of a node has a card of its own (with gloo beside it for host
 tensors: seeds, flags), and ``gloo`` where ranks share a card (NCCL
-refuses two ranks on one GPU). The port's collectives on CUDA tensors
-are ``all_reduce`` and ``all_gather``, which gloo takes as they are
-(with ``broadcast`` and ``reduce_scatter``; it refuses ``all_to_all``,
-which the port does not use), so nothing is staged through host memory
-by hand: gloo copies CUDA tensors to the host itself.
+refuses two ranks on one GPU). gloo takes CUDA tensors in
+``all_reduce``, ``all_gather``, ``broadcast`` and ``reduce_scatter``
+(it copies them to the host itself) and refuses them in ``all_to_all``:
+there ``all_to_all`` (the R-GNN halo exchange) stages them through
+pinned host memory (``all_to_all_route``, logged by the encoder that
+uses it); NCCL takes them as they are.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -229,6 +230,37 @@ def all_gather(tensor: torch.Tensor, group=None) -> List[torch.Tensor]:
     with record_function("comm.all_gather"):
         dist.all_gather(parts, src, group=group)
     return parts
+
+
+def all_to_all_route(device_type: str) -> Tuple[bool, str]:
+    """(staged, reason): whether ``all_to_all`` of a tensor on
+    ``device_type`` goes through pinned host memory (gloo refuses CUDA
+    tensors there; NCCL takes them, gloo takes host tensors)."""
+    name = backend()
+    if device_type != "cuda":
+        return False, f"host tensors, {name or 'no'} backend"
+    if "nccl" in name:
+        return False, "CUDA tensors through NCCL"
+    return True, (f"CUDA tensors staged through pinned host memory ({name} "
+                  "refuses CUDA tensors in all_to_all)")
+
+
+def all_to_all(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Row block q of ``tensor`` (equal blocks, one a rank of ``group``)
+    sent to rank q; block q of the result came from rank q (a
+    ``comm.all_to_all`` span; staged per ``all_to_all_route``)."""
+    src = tensor.contiguous()
+    staged, _ = all_to_all_route(src.device.type)
+    with record_function("comm.all_to_all"):
+        if not staged:
+            out = torch.empty_like(src)
+            _dist().all_to_all_single(out, src, group=group)
+            return out
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src)
+        received = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        _dist().all_to_all_single(received, host, group=group)
+        return received.to(src.device, non_blocking=True)
 
 
 def put_global(array, mesh, sharded: bool):

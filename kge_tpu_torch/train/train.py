@@ -66,7 +66,10 @@ is already divided by the global batch, so the data group's sum of the
 ranks' losses and gradients is the global batch's (one ``all_reduce``
 of the step's gradients, ``_reduce_gradients``). Embedding tables are
 stored as row blocks over ``model`` (``LookupEmbedder``), and their
-optimizer state with them. Penalties are computed whole on every rank
+optimizer state with them; every model rank computes the replicated
+parameters' gradients whole, equal up to the order of a card's atomic
+sums, and their mean over the model group keeps the ranks' copies equal
+bit for bit (``_average_over_model``). Penalties are computed whole on every rank
 and divided by the data axis before their backward, so the sum counts
 them once; the epoch's metrics are summed over the data group in its one
 fetch. ``train.batch_size`` rounds up to divide the data axis. Rank 0
@@ -528,6 +531,23 @@ class TrainingJob(TrainingOrEvaluationJob):
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
 
+    def _average_over_model(self, grads: List[torch.Tensor]):
+        """Under a model axis above 1, ``grads`` (the replicated
+        parameters') replaced in place by their mean over the model group
+        (one collective): a no-op in exact arithmetic, and on a card it
+        undoes the atomics' last bits (an R-GNN encoder's ``index_add_``),
+        so the ranks' copies never drift apart."""
+        if self.mesh is None or self.mesh.shape["model"] == 1 or not grads:
+            return
+        with record_function("train.reduce_gradients"):
+            flat = dist.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                   self.mesh.group("model"))
+            flat /= self.mesh.shape["model"]
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
     def _step(self, batch: Dict[str, Any], lrs: Dict[str, Any],
               step: int = 0,
               correction: Optional[torch.Tensor] = None
@@ -587,6 +607,10 @@ class TrainingJob(TrainingOrEvaluationJob):
             with record_function("train.backward"):
                 penalty_total.backward()
             penalty_total = penalty_total.detach()
+        sharded = self.model.sharded_tables()
+        self._average_over_model(
+            [p.grad for name, p in self.model.named_parameters()
+             if p.grad is not None and name not in sharded])
         self._reduce_gradients(
             [p.grad for p in params if p.grad is not None]
             + [gathered.grad for _, gathered in rows.values()])

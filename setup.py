@@ -8,7 +8,8 @@ setup(
     include_package_data=True,
     package_data={
         "kge_tpu": ["*.yaml", "models/*.yaml"],
-        "kge_tpu_torch": ["*.yaml", "models/*.yaml", "csrc/*.cu"],
+        "kge_tpu_torch": ["*.yaml", "models/*.yaml", "csrc/*.cu",
+                          "native/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -7,6 +7,7 @@ loads and evaluates in kge_tpu.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -494,6 +495,48 @@ print("RESULT " + json.dumps(dict(
     loaded=loaded, epochs=[started["epoch"], resumed["epoch"]],
     loss=resumed["avg_loss"])))
 """
+
+
+RGNN_MESH_SCRIPT = """
+import json, sys
+from kge_tpu_torch import cli, native
+from kge_tpu_torch.parallel.collectives import halo_exchange
+
+folder, dataset = sys.argv[1:3]
+result = cli.main(["start", "examples/toy-transe-compgcn-train.yaml",
+                   "--folder", folder, "--dataset.name", dataset,
+                   "--train.max_epochs", "1", "--valid.every", "1",
+                   "--tpu.mesh.model", "2", "--job.device", "cpu",
+                   "--console.quiet", "true"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "kge_tpu"))
+print("RESULT " + json.dumps(dict(
+    loaded=loaded, loss=result["avg_loss"], exchanges=halo_exchange.calls,
+    host_ops=native.library() is not None)))
+"""
+
+
+def test_cli_rgnn_mesh_run_without_importing_kge_tpu(tmp_path):
+    """CompGCN (``sub``, the halo route) by the CLI on two gloo ranks of
+    a 1x2 mesh, its dataset (a fresh copy of data/toy, no caches) parsed
+    by the g++ host ops: no rank loads a JAX module, the exchange ran,
+    the ranks agree."""
+    dataset = tmp_path / "toy"
+    dataset.mkdir()
+    for name in os.listdir(TOY):
+        if not name.endswith(".pkl"):
+            shutil.copy(os.path.join(TOY, name), dataset / name)
+    outs = launch_ok(2, ["-c", RGNN_MESH_SCRIPT, str(tmp_path / "run"),
+                         str(dataset)])
+    results = [json.loads(line[len("RESULT "):]) for out in outs
+               for line in out.splitlines() if line.startswith("RESULT ")]
+    assert len(results) == 2
+    for result in results:
+        assert result["loaded"] == []
+        assert result["exchanges"] > 0 and result["host_ops"]
+        assert result["loss"] == results[0]["loss"]
+    assert np.isfinite(results[0]["loss"])
+    assert "triples-train.torch.cache.pkl" in os.listdir(dataset)
 
 
 def test_cli_mesh_run_without_importing_kge_tpu(tmp_path):

@@ -80,13 +80,15 @@ def test_port_config_in_a_checkpoint_loads_in_kge_tpu():
 
 def test_port_modules_rewrite():
     """kge_tpu's modules map to the port's (the multi-device
-    ``kge_tpu.parallel`` too, now ported); one the port lacks (the g++
-    host ops, ``kge_tpu.native``) is dropped; others pass through."""
+    ``kge_tpu.parallel`` and the g++ host ops ``kge_tpu.native`` too,
+    now ported); one the port lacks (the Pallas kernels,
+    ``kge_tpu.ops.pallas``, whose counterparts are CUDA sources) is
+    dropped; others pass through."""
     assert port_modules(["kge_tpu.models", "kge_tpu.search",
                          "kge_tpu.parallel", "kge_tpu.native",
-                         "my.plugin"]) \
+                         "kge_tpu.ops.pallas", "my.plugin"]) \
         == ["kge_tpu_torch.models", "kge_tpu_torch.search",
-            "kge_tpu_torch.parallel", "my.plugin"]
+            "kge_tpu_torch.parallel", "kge_tpu_torch.native", "my.plugin"]
 
 
 @pytest.fixture

@@ -60,7 +60,7 @@ def example_ranks(folder):
             for e in entries if e.get("scope") == "example"]
 
 
-def eval_mrr(folder, checkpoint_file, jax):
+def eval_mrr(folder, checkpoint_file, jax, dataset=DATASET):
     """The validation MRR of a checkpoint, evaluated on one device by
     kge_tpu (``jax``) or the port on one process."""
     cls, job_cls, dataset_cls, load = (
@@ -73,7 +73,7 @@ def eval_mrr(folder, checkpoint_file, jax):
                        "eval.trace_level": "epoch"}.items():
         config.set(key, value)
     job = job_cls.create_from(load(checkpoint_file), new_config=config,
-                              dataset=dataset_cls.create(config, DATASET))
+                              dataset=dataset_cls.create(config, dataset))
     job.verbose = False
     return job.run()["mean_reciprocal_rank_filtered"]
 

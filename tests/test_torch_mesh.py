@@ -5,7 +5,7 @@ choice of sharded leaves against ``params_sharding``, the row ranges,
 the device of each rank, and, on 2 ``gloo`` ranks, the collectives with
 autograd and the sharded K1 and K2 routes against their unsharded
 results; then the row-sparse (K3) route on a 1x2 mesh against one
-process, and the errors of a mesh the port cannot run.
+process, and the error of a mesh that does not match the world.
 """
 
 import json
@@ -181,10 +181,12 @@ def collectives(tmp_path_factory):
 @pytest.mark.parametrize("check,tol", [
     ("lookup", 0.0), ("lookup_grad", 0.0), ("gather", 0.0),
     ("gather_grad", 0.0), ("model_sum", 1e-5), ("model_sum_grad", 0.0),
+    ("halo", 0.0), ("halo_grad", 1e-6), ("enter_grad", 1e-5),
 ])
 def test_collectives_with_autograd(collectives, check, tol):
-    """The vocab-parallel lookup, the table gather and the model sum,
-    forward and backward, against plain indexing on the whole table."""
+    """The vocab-parallel lookup, the table gather, the model sum and
+    the R-GNN halo route's exchange and weights' entry, forward and
+    backward, against plain indexing on the whole table."""
     for rank in collectives:
         assert rank[check] <= tol
 
@@ -270,19 +272,6 @@ def test_row_sparse_on_a_model_axis_matches_one_process(tmp_path, optimizer):
     got = np.load(os.path.join(out, "tables.npz"))
     for name, table in want.items():
         np.testing.assert_allclose(got[name], table, rtol=1e-6, atol=1e-6)
-
-
-def test_rgnn_encoder_under_a_mesh_raises(tmp_path):
-    config_file = os.path.join(REPO, "examples", "toy-rgcn-train.yaml")
-    spec = {"config": config_file, "dataset": os.path.join(REPO, "data",
-                                                           "toy"),
-            "out": str(tmp_path), "options": {"job.device": "cpu",
-                                              "tpu.mesh.model": 2}}
-    rcs, outs = launch(2, ["-m", "tests.torch_mesh_launch", "train",
-                           json.dumps(spec)])
-    for rc, out in zip(rcs, outs):
-        assert rc != 0
-        assert "NotImplementedError" in out and "halo exchange" in out
 
 
 def test_mesh_that_does_not_match_the_world_raises(tmp_path):

@@ -8,8 +8,9 @@ rank when one hangs past the timeout (no rank may cost the suite its
 time limit). ``python -m tests.torch_mesh_launch <mode> <json>`` is a
 rank of this module's own jobs: ``train`` (a training job on a dataset
 folder, its epochs, validations and tables written per rank) and
-``collectives`` (the collectives with autograd and the sharded kernel
-routes against their unsharded results). Nothing here imports JAX.
+``collectives`` (the collectives with autograd, the R-GNN halo route's
+among them, and the sharded kernel routes against their unsharded
+results). Nothing here imports JAX.
 """
 
 import json
@@ -119,6 +120,7 @@ def _train(spec):
         adagrad_row_update, sgd_row_update,
     )
     from kge_tpu_torch.parallel import distributed as dist
+    from kge_tpu_torch.parallel.collectives import halo_exchange
     from kge_tpu_torch.train.job import Job
     from kge_tpu_torch.utils.io import load_checkpoint
     from kge_tpu_torch.utils.params import state_dict_from_params
@@ -161,6 +163,7 @@ def _train(spec):
         "log_folder": job.config.log_folder,
         "param_sums": {name: float(p.detach().double().sum())
                        for name, p in job.model.named_parameters()},
+        "halo_exchanges": halo_exchange.calls,
     }
     os.makedirs(spec["out"], exist_ok=True)
     if spec.get("tables"):
@@ -187,7 +190,7 @@ def _collectives(spec):
     from kge_tpu_torch.ops.rank_count import rank_counts
     from kge_tpu_torch.parallel import distributed as dist
     from kge_tpu_torch.parallel.collectives import (
-        gather_table, model_sum, vocab_lookup,
+        enter_blocks, gather_table, halo_exchange, model_sum, vocab_lookup,
     )
     from kge_tpu_torch.parallel.mesh import build_mesh
 
@@ -228,6 +231,28 @@ def _collectives(spec):
     total.backward()
     out["model_sum"] = diff(total, (table ** 2).sum())
     out["model_sum_grad"] = diff(shard.grad, 2 * table[lo:hi])
+
+    # the R-GNN halo route's collectives: the exchange of 3 rows a pair
+    # of blocks (send[q, p]: the rows block q sends to block p), the
+    # replicated weights entering the blocks
+    me, S = mesh.model_index, 8
+    send = torch.from_numpy(rng.integers(0, S, (2, 2, 3)))
+    g_halo = torch.from_numpy(rng.standard_normal((2, 6, 5)).astype(
+        np.float32))
+    local = table[lo:hi].clone().requires_grad_()
+    got = halo_exchange(local, send[me], group)
+    (got * g_halo[me]).sum().backward()
+    out["halo"] = diff(got, torch.cat([table[q * S + send[q, me]]
+                                       for q in range(2)]))
+    want = torch.zeros(S, 5)
+    for p in range(2):
+        want.index_add_(0, send[me, p], g_halo[p][3 * me:3 * me + 3])
+    out["halo_grad"] = diff(local.grad, want)
+    w = torch.from_numpy(rng.standard_normal((5, 2)).astype(
+        np.float32)).requires_grad_()
+    (entered,) = enter_blocks([w], group)
+    (table[lo:hi] @ entered).sum().backward()
+    out["enter_grad"] = diff(w.grad, table.sum(0)[:, None].expand(5, 2))
 
     # K2 sharded: C = 13 candidates (not a multiple of the model axis),
     # padded to 16 rows; each model rank counts against its block
