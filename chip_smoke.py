@@ -79,7 +79,11 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    untouched row unchanged; then at the entity shape, the relation shape
    and the two-table step the time of a call, its device and host time,
    and for SGD ``index_add_``'s (one a table), each with its bound; each
-   call must be one launch;
+   call must be one launch. The learning rate is a float32 scalar on the
+   card, which the kernel reads there (a captured training step's form;
+   the timed calls take it so), or a host float; at the two training
+   steps' shapes the kernel reading it on the card must give the plain
+   version's tables and sums (host float) bit for bit;
 8. SGD phase: one epoch of plain SGD with row-sparse updates
    (``tpu.sparse_updates always``) on the FB15k-237-size graph, one K3
    SGD launch a step for both tables (266), against the same epoch with
@@ -89,14 +93,23 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    Wikidata5M's sizes (4,818,679 entities, 828 relations, its train split
    cut to 500,000 triples, its 5,163 / 5,133 valid and test triples) and
    ``start`` of ``examples/wikidata5m-complex-train.yaml`` as it is for
-   one epoch, then ``valid``: row-sparse updates must be on, K3 Adagrad
-   launched once a step for both tables (489 times), K1 978 times, K2 42
+   one epoch, then ``valid``: row-sparse updates must be on, the steps in
+   groups of 4 replayed as CUDA graphs (121 replays: the first group is
+   the warm-up, a 1-step tail), K3 Adagrad launched once a step for both
+   tables (489 times, counted through the replays), K1 978 times, K2 42
    times, the loss finite and the MRR in (0, 1]. From the same
    ``checkpoint_00000.pt``, one epoch each row-sparse on the card, dense
    on the card and row-sparse on the host (plain K1 and K3): first batch within 1e-5 relative and
    epoch within 1e-3. Prints ms per step, triples/s, set-up and
-   checkpoint-save seconds and peak device memory. It needs about 10 GB
-   of disk under ``local/`` (two 4.9 GB checkpoints at a time);
+   checkpoint-save seconds and peak device memory. Then, in jobs built
+   without a folder: under ``torch.use_deterministic_algorithms`` the
+   first 200 batches of 2 epochs captured against one step a dispatch
+   and against 1 epoch saved, loaded and run on (losses, tables and
+   Adagrad sums bit for bit, K1 and K3 counted through the replays equal
+   to the per-batch run's), and 200-step windows of epoch 2 profiled,
+   captured and eager (ms a step, triples/s, device busy share, peak
+   memory). It needs about 10 GB of disk under ``local/`` (two 4.9 GB
+   checkpoints at a time);
 10. losses and optimizers (run after the K3 kernel phase), the card
    against the host on the same inputs: each of the eight losses, value
    and gradient, at the KvsAll shape ([128, 14,541] scores, smoothed
@@ -140,10 +153,17 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    as 20 x 10, 32 3 x 3 filters, dropout 0.2/0.2/0.3, label smoothing
    0.1, batch 128, Adam lr 0.003, ExponentialLR 0.995) on the
    FB15k-237-size graph, 1 epoch with a validation (K2 138 times, K1 and
-   K3 never), ``resume`` to epoch 2; the first 50 batches of epoch 1
-   card vs host at dropout 0 (first batch within 1e-5, their avg_loss
-   within 1e-3); dropout on the card by its statistics; a window of 200
-   steps profiled (device busy share, peak memory, top kernels);
+   K3 never), ``resume`` to epoch 2, both in groups of 4 steps replayed
+   as CUDA graphs with dropout and the batch-norm state inside (the log
+   line, the replays: every group but the first of each batch shape);
+   the first 50 batches of epoch 1 card vs host at dropout 0 (first
+   batch within 1e-5, their avg_loss within 1e-3); dropout on the card
+   by its statistics; under ``torch.use_deterministic_algorithms`` the
+   first 200 batches of 2 epochs captured against one step a dispatch
+   (in the grouped batch order) and against 1 epoch resumed to 2 (epoch
+   losses and every checkpoint array bit for bit); windows of 200 steps
+   of epoch 2 profiled, captured and eager (ms a step, device busy share,
+   peak memory, top kernels);
 16. scorer phase: DistMult, CP, SimplE, RESCAL, RelationalTucker3,
    TransE and RotatE (L1 and L2), TransH and the reciprocal Transformer
    at HittER's widths (``SCORERS``), each trained 20 steps on the card
@@ -355,6 +375,9 @@ SCORER_STEPS, SCORER_TEST = 20, 500
 # the KvsAll main paths' profiles hold a window of this many steps (the
 # profiler's records of a whole epoch take minutes to collect)
 PROFILE_STEPS = 200
+# batches of each epoch in the bit-for-bit runs of captured groups,
+# per-batch steps and a resume (ConvE's and Wikidata5M's)
+DET_BATCHES = 200
 # the R-GNN main path: CompGCN's FB15k-237 recipe (Vashishth et al.,
 # ICLR 2020, arXiv:1911.03082); the host compares its first batches (a
 # host step runs the encoder over the whole graph)
@@ -1148,20 +1171,32 @@ def clone_like(x):
     return y
 
 
-def k3_group_args(optimizer, copies):
+def device_lrs(n: int, device) -> list:
+    """K3_LR / (k + 1) for k < n as the trainer hands learning rates to a
+    captured step: 0-d views of one float32 device buffer."""
+    buffer = torch.tensor([K3_LR / (k + 1) for k in range(n)],
+                          dtype=torch.float32, device=device)
+    return [buffer[k] for k in range(n)]
+
+
+def k3_group_args(optimizer, copies, on_device: bool = False):
     """(table, sum, uniq, rows_g, lr, eps) of each group: the k-th group
-    has its own lr and eps (K3_LR / (k + 1), K3_EPS * (k + 1))."""
-    return [(t, s if optimizer == "adagrad" else None, u, g,
-             K3_LR / (k + 1), K3_EPS * (k + 1))
-            for k, (t, s, u, g) in enumerate(copies)]
+    has its own lr and eps (K3_LR / (k + 1), K3_EPS * (k + 1)); the lr a
+    host float, or with ``on_device`` a float32 scalar on the card."""
+    lrs = (device_lrs(len(copies), copies[0][0].device) if on_device
+           else [K3_LR / (k + 1) for k in range(len(copies))])
+    return [(t, s if optimizer == "adagrad" else None, u, g, lr,
+             K3_EPS * (k + 1))
+            for k, ((t, s, u, g), lr) in enumerate(zip(copies, lrs))]
 
 
-def run_k3(ru, optimizer, groups, kernel: bool):
+def run_k3(ru, optimizer, groups, kernel: bool, on_device: bool = False):
     """One update of fresh copies of each group's inputs: the kernel (one
     launch for all groups; the one-table wrapper for one group) or its
-    plain version; returns [(table, sum)]."""
+    plain version, the learning rates host floats or (``on_device``)
+    float32 scalars on the card; returns [(table, sum)]."""
     copies = [[clone_like(x) for x in inputs] for inputs in groups]
-    args = k3_group_args(optimizer, copies)
+    args = k3_group_args(optimizer, copies, on_device)
     if not kernel:
         ru.row_update_groups_reference(optimizer, args)
     elif len(args) > 1:
@@ -1224,6 +1259,22 @@ def check_k3(ru, optimizer, label, groups) -> int:
           f": table and sum {'bit-equal to' if worst == 0 else 'within 1 ulp of'}"
           " the plain version, untouched rows unchanged", flush=True)
     return worst
+
+
+def check_k3_device_lr(ru, optimizer, label, groups):
+    """The kernel reading its learning rates from the card (as a captured
+    training step does) against the plain version with host floats:
+    table and sum bit for bit."""
+    got_all = run_k3(ru, optimizer, groups, kernel=True, on_device=True)
+    want_all = run_k3(ru, optimizer, groups, kernel=False)
+    for k, (got, want) in enumerate(zip(got_all, want_all)):
+        for name, g, w in zip(("table", "sum"), got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                fail(f"row_update {optimizer} {label} (group {k}): {name} "
+                     "with the lr read on the card is not the plain "
+                     "version's bit for bit")
+    print(f"row_update {optimizer} {label}: lr read on the card, table and "
+          "sum bit-equal to the plain version with host floats", flush=True)
 
 
 def k3_runs(V, R, D, seed, device):
@@ -1319,23 +1370,30 @@ def k3_phase(ru, seed, device) -> dict:
     main = make_k3_inputs(V, W5M_ENTITY_ROWS, D, seed, device)
     relations = make_k3_inputs(W5M_RELATION_ROWS, W5M_RELATION_ROWS, D,
                                seed + 1, device)
+    # the training steps' shapes: both tables in one launch
+    steps = [
+        ("training step: entity and relation tables in one launch",
+         [main, relations]),
+        ("triple phase step: entity and relation tables in one launch",
+         triple_step_inputs(seed + 9, device)),
+    ]
     cases = [
         ("wikidata5m entity shape", [main]),
         ("relation shape", [relations]),
         ("constructed cases", [constructed_k3_inputs(main)]),
         ("wikidata5m entity shape, int32 ids",
          [main[:2] + [main[2].int(), main[3]]]),
-        ("training step: entity and relation tables in one launch",
-         [main, relations]),
-        ("triple phase step: entity and relation tables in one launch",
-         triple_step_inputs(seed + 9, device)),
+        *steps,
         *k3_edge_cases(seed, device),
     ]
     out = {}
     for optimizer in ("adagrad", "sgd"):
         out[optimizer] = dict(max_abs_err=max(
             check_k3(ru, optimizer, label, groups) for label, groups in cases))
-    del cases
+        # with the lr on the card, the captured step's form
+        for label, groups in steps:
+            check_k3_device_lr(ru, optimizer, label, groups)
+    del cases, steps
 
     table, ssum, _, rows_g = main
     rel_table, rel_sum, rel_uniq, rel_g = relations
@@ -1348,14 +1406,17 @@ def k3_phase(ru, seed, device) -> dict:
         sets = itertools.cycle(id_sets)
         return lambda: fn(next(sets))
 
+    # the kernel reads its lr from the card, as on the training path (a
+    # host float would add a fill kernel a call)
+    lr = device_lrs(1, device)[0]
     for optimizer in ("adagrad", "sgd"):
         adagrad = optimizer == "adagrad"
 
         def groups(u):
-            return [(table, ssum if adagrad else None, u, rows_g, K3_LR,
+            return [(table, ssum if adagrad else None, u, rows_g, lr,
                      K3_EPS),
                     (rel_table, rel_sum if adagrad else None, rel_uniq,
-                     rel_g, K3_LR, K3_EPS)]
+                     rel_g, lr, K3_EPS)]
 
         def one_table(group):
             t, s, u, g, lr, eps = group
@@ -1365,8 +1426,8 @@ def k3_phase(ru, seed, device) -> dict:
                 ru.sgd_row_update(t, u, g, lr)
 
         def library(group):
-            t, _, u, g, lr, _ = group
-            t.index_add_(0, u, g, alpha=-lr)
+            t, _, u, g, _, _ = group
+            t.index_add_(0, u, g, alpha=-K3_LR)
 
         # (key, label, rows, kernel, plain, library): one wrapper call on the
         # entity table, on the relation table, and the step's one launch
@@ -1668,23 +1729,76 @@ def write_strategy_config(path: str, dataset_folder: str, seed: int,
 
 
 @contextlib.contextmanager
-def first_batches(n: int):
-    """Every training job created inside stops its epochs after their
-    first ``n`` batches, in the epoch's own order."""
+def first_batches(n: int, epochs=None):
+    """Every training job created inside stops its epochs (those in
+    ``epochs`` when given) after their first ``n`` batches, in the
+    epoch's own order."""
+    def cut(job):
+        generate = job._generate_batches
+        job._generate_batches = lambda epoch: (
+            itertools.islice(generate(epoch), n)
+            if epochs is None or epoch in epochs else generate(epoch))
+
+    with on_created_jobs(cut):
+        yield
+
+
+@contextlib.contextmanager
+def on_created_jobs(change):
+    """``change(job)`` on every training job created inside."""
     from kge_tpu_torch.train.job import Job
     from kge_tpu_torch.train.train import TrainingJob
 
-    def cut(job):
+    def hook(job):
         if isinstance(job, TrainingJob):
-            generate = job._generate_batches
-            job._generate_batches = lambda epoch: itertools.islice(
-                generate(epoch), n)
+            change(job)
 
-    Job.job_created_hooks.append(cut)
+    Job.job_created_hooks.append(hook)
     try:
         yield
     finally:
-        Job.job_created_hooks.remove(cut)
+        Job.job_created_hooks.remove(hook)
+
+
+def eager_groups(job):
+    """The job runs its groups of steps eagerly, in the same order, with
+    the same math (the per-batch steps its graphs replay)."""
+    job._capture = False
+
+
+def in_group_order(k: int):
+    """A change for ``on_created_jobs``: a KvsAll job at one step a
+    dispatch takes its batches in the order groups of ``k`` take them
+    (KvsAll regroups its batches by the group size, as kge_tpu does), so
+    its steps compare one for one with a grouped run's."""
+    from kge_tpu_torch.train.train_kvsall import TrainingJobKvsAll
+
+    def change(job):
+        if not isinstance(job, TrainingJobKvsAll):
+            return
+        generate = job._generate_batches
+
+        def regrouped(epoch):
+            job._steps_per_dispatch = lambda: k  # read by the regrouping
+            try:
+                yield from generate(epoch)
+            finally:
+                del job._steps_per_dispatch
+
+        job._generate_batches = regrouped
+
+    return change
+
+
+def check_replays(label: str, job, dispatches: int) -> dict:
+    """A captured job's groups: the first group of each shape ran eagerly
+    (its capture's warm-up), every later one was a replay."""
+    out = dict(group_dispatches=dispatches, graphs=len(job._graphs),
+               graph_replays=job.graph_replays)
+    if (not job._capture or not job._graphs
+            or job.graph_replays != dispatches - len(job._graphs)):
+        fail(f"{label}: the groups were not replayed as captured: {out}")
+    return out
 
 
 def card_vs_host(label: str, run: str, scratch: str, flags=(),
@@ -1747,14 +1861,8 @@ def profiled_window(label: str, run: str, scratch: str, epoch: int,
             f"train {label}", "train.", lambda: cli.main([
                 "resume", folder, "--train.max_epochs", str(epoch),
                 "--valid.every", "0", *flags]), epoch_only=True)
-    device_ms = sum(ms for ms, _ in device.values())
-    print(f"train {label} profiled window: " + json.dumps({
-        "seconds": entry["epoch_time"], "batches": entry["batches"],
-        "ms_per_step": 1e3 * entry["epoch_time"] / entry["batches"],
-        f"{unit}_per_s": entry["batches"] * batch / entry["epoch_time"],
-        "device_busy_share": device_ms / (1e3 * entry["epoch_time"]),
-        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
-        "device_memory_before_bytes": base}), flush=True)
+    print(f"train {label} profiled window: " + json.dumps(
+        window_numbers(entry, device, batch, unit, base)), flush=True)
     shutil.rmtree(folder)
 
 
@@ -2103,16 +2211,158 @@ def host_ops_phase(dataset_folder: str) -> dict:
     return out
 
 
+def w5m_job(config_yaml: str, dataset, **options):
+    """A training job of the Wikidata5M run's config (``config_yaml``)
+    with ``options``, sharing ``dataset``, without a folder: it writes no
+    4.9 GB checkpoint."""
+    from kge_tpu_torch import Config
+    from kge_tpu_torch.train.train import TrainingJob
+
+    config = Config()
+    config.load(config_yaml, create=True)
+    for key, value in {"valid.every": 0, **options}.items():
+        config.set(key, value)
+    return TrainingJob.create(config, dataset)
+
+
+def trained_arrays(job) -> dict:
+    """Copies, on the card, of the job's parameters and optimizer state."""
+    out = {name: p.detach().clone()
+           for name, p in job.model.named_parameters()}
+    for slot, tensors in job.opt_state.items():
+        out.update({f"{slot}/{k}": v.clone() for k, v in tensors.items()})
+    return out
+
+
+def w5m_deterministic(config_yaml: str, dataset, scratch: str,
+                      kernels) -> dict:
+    """``deterministic_runs`` of the Wikidata5M run, its jobs built in
+    this process without a folder: captured groups of 4, one step a
+    dispatch, and 1 epoch saved, loaded (``Job.create_from``) and run to
+    epoch 2, the first DET_BATCHES batches of each epoch. The epoch
+    losses, tables and Adagrad sums must be equal bit for bit, and the
+    kernel launches counted through the replays the per-batch run's."""
+    from kge_tpu_torch import Config
+    from kge_tpu_torch.train.job import Job
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    def epoch_losses(job):
+        losses = []
+        job.post_epoch_hooks.append(lambda j: losses.append(
+            j.current_trace["epoch"]["avg_loss"]))
+        return losses
+
+    runs, grouped = {}, None
+
+    def compare(name, job, losses, **extra):
+        nonlocal grouped
+        arrays = trained_arrays(job)
+        runs[name] = dict(losses=losses, **extra)
+        if grouped is None:
+            grouped = arrays
+        elif set(arrays) != set(grouped) or not all(
+                torch.equal(arrays[k], grouped[k]) for k in arrays):
+            fail(f"wikidata5m: the {name} run's tables are not the "
+                 f"captured run's bit for bit: {runs}")
+
+    folder = os.path.join(scratch, "w5m-det-resumed")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with first_batches(DET_BATCHES):
+            for name, options in (
+                    ("grouped", {}),
+                    ("per_batch", {"tpu.steps_per_dispatch": 1})):
+                reset_counts(kernels)
+                dispatches = []
+                job = w5m_job(config_yaml, dataset, **options,
+                              **{"train.max_epochs": 2})
+                timed_dispatches(job, dispatches)
+                losses = epoch_losses(job)
+                job.run()
+                compare(name, job, losses, launches=counts(kernels),
+                        dispatches=len(dispatches),
+                        graph_replays=job.graph_replays,
+                        captured=bool(job._capture))
+                del job
+                fresh_device_memory()
+            job = w5m_job(config_yaml, dataset, **{"train.max_epochs": 1})
+            job.run()
+            os.makedirs(folder)
+            job.config.folder = folder
+            job._save(job.config.checkpoint_file(1))
+            del job
+            fresh_device_memory()
+            config = Config()
+            config.load(config_yaml, create=True)
+            config.set("train.max_epochs", 2)
+            config.set("valid.every", 0)
+            job = Job.create_from(
+                load_checkpoint(os.path.join(folder, "checkpoint_00001.pt")),
+                new_config=config, dataset=dataset)
+            losses = epoch_losses(job)
+            job.run()
+            compare("resumed", job, losses)
+            del job
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(folder, ignore_errors=True)
+    del grouped
+    fresh_device_memory()
+    print("wikidata5m deterministic checks: " + json.dumps(dict(
+        runs, batches_an_epoch=DET_BATCHES)), flush=True)
+    want = dict(adagrad_row_update=2 * DET_BATCHES,
+                shared_ce_loss=4 * DET_BATCHES)
+    for name in ("grouped", "per_batch"):
+        expect_counts(f"the Wikidata5M {name} run", runs[name]["launches"],
+                      want)
+    if (runs["per_batch"]["losses"] != runs["grouped"]["losses"]
+            or runs["resumed"]["losses"] != runs["grouped"]["losses"][1:]):
+        fail(f"wikidata5m: epoch losses not equal bit for bit: {runs}")
+    if (not runs["grouped"]["captured"] or runs["grouped"]["graph_replays"]
+            != 2 * DET_BATCHES // GROUP - 1 or runs["per_batch"]["dispatches"]):
+        fail(f"wikidata5m: the grouped run was not replayed, or the "
+             f"per-batch run was grouped: {runs}")
+    return runs
+
+
+def w5m_window(config_yaml: str, dataset, eager: bool) -> dict:
+    """Epoch 2 of a Wikidata5M job, the first PROFILE_STEPS steps of each
+    epoch: captured (its one group shape captured in epoch 1) or with
+    ``eager`` the same groups eagerly; once without a profiler
+    (``ms_per_step_unprofiled``), once under torch.profiler. Returns
+    ``window_numbers``."""
+    label = f"wikidata5m {'eager' if eager else 'captured'}"
+
+    def run():
+        job = w5m_job(config_yaml, dataset, **{"train.max_epochs": 2})
+        if eager:
+            eager_groups(job)
+        return job.run()
+
+    with first_batches(PROFILE_STEPS):
+        plain = run()
+        base = fresh_device_memory()
+        entry, device = profile_run(f"train {label}", "train.", run,
+                                    epoch_only=True, epoch=2)
+    out = dict(window_numbers(entry, device, TRAIN_BATCH, "triples", base),
+               ms_per_step_unprofiled=1e3 * plain["epoch_time"]
+               / plain["batches"])
+    print(f"train {label} profiled window: " + json.dumps(out), flush=True)
+    return out
+
+
 def w5m_phase(kernels, seed, scratch) -> dict:
     """The slice's path: ``start`` of examples/wikidata5m-complex-train.yaml
     as it is (tpu.sparse_updates auto) on a synthetic graph with
     Wikidata5M's sizes for one epoch, then ``valid``; K3 must update both
-    tables every step. From the same checkpoint_00000.pt, one epoch each
-    row-sparse on the card, dense on the card, and
-    row-sparse on the host (plain K1 and K3), compared. Each run folder
-    goes as soon as it has been read: two checkpoints of 4.9 GB at most
-    are on disk at once."""
-    from kge_tpu_torch import cli
+    tables every step, in groups of 4 steps replayed as CUDA graphs. From
+    the same checkpoint_00000.pt, one epoch each row-sparse on the card,
+    dense on the card, and row-sparse on the host (plain K1 and K3),
+    compared. Each run folder goes as soon as it has been read: two
+    checkpoints of 4.9 GB at most are on disk at once. Then, in jobs
+    without a folder, ``w5m_deterministic`` and ``w5m_window`` captured
+    and eager."""
+    from kge_tpu_torch import Config, Dataset, cli
     from kge_tpu_torch.train.train import TrainingJob
 
     n_train = WIKIDATA5M["splits"]["train"]
@@ -2123,9 +2373,12 @@ def w5m_phase(kernels, seed, scratch) -> dict:
     host_ops_phase(dataset_folder)
 
     saves = []  # seconds of each checkpoint save (host copy + pickle)
+    writes = [True]  # False: a checkpoint that nothing reads is not saved
     save = TrainingJob._save
 
     def timed_save(job, filename):
+        if not writes[0]:
+            return
         t = time.perf_counter()
         save(job, filename)
         saves.append(time.perf_counter() - t)
@@ -2137,9 +2390,11 @@ def w5m_phase(kernels, seed, scratch) -> dict:
                   str(seed), "--console.quiet", "true"]
         reset_counts(kernels)
         start_base = fresh_device_memory()
+        jobs, dispatches = [], []
         t0 = time.perf_counter()
-        cli.main(["start", os.path.join(REPO, W5M_RECIPE), "--folder", run,
-                  "--train.max_epochs", "1", *common])
+        with captured_run(jobs, dispatches):
+            cli.main(["start", os.path.join(REPO, W5M_RECIPE), "--folder",
+                      run, "--train.max_epochs", "1", *common])
         torch.cuda.synchronize()
         start_seconds = time.perf_counter() - t0
         start_counts = counts(kernels)
@@ -2148,6 +2403,13 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         with open(os.path.join(run, "kge.log")) as f:
             sparse_logged = "Using row-sparse embedding updates." in f.read()
         (epoch,) = read_trace(run, event="epoch_completed", job="train")
+        # one group shape: its first group is the warm-up, a 1-step tail
+        start_groups = started_captured("the Wikidata5M-size start", run,
+                                        jobs[0], len(dispatches))
+        if start_groups["graph_replays"] != W5M_STEPS // GROUP - 1:
+            fail(f"the Wikidata5M-size start: {start_groups}, expected "
+                 f"{W5M_STEPS // GROUP - 1} replays")
+        del jobs[:]
 
         reset_counts(kernels)
         t0 = time.perf_counter()
@@ -2163,7 +2425,7 @@ def w5m_phase(kernels, seed, scratch) -> dict:
             epoch_seconds=epoch["epoch_time"],
             ms_per_step=1e3 * epoch["epoch_time"] / steps,
             triples_per_s=n_train / epoch["epoch_time"],
-            seconds_cli=start_seconds,
+            groups=start_groups, seconds_cli=start_seconds,
             dataset_write_seconds=dataset_seconds,
             setup_seconds=setup, checkpoint_save_seconds=start_saves,
             peak_device_memory_bytes=start_peak,
@@ -2193,9 +2455,10 @@ def w5m_phase(kernels, seed, scratch) -> dict:
             "dense-card": ["--tpu.sparse_updates", "never"],
             "sparse-host": ["--job.device", "cpu"],
         }
-        # one copy of checkpoint_00000.pt moves from run to run: a run
-        # resumed at epoch 0 writes it anew (the same weights and state)
-        # before its epoch-1 checkpoint, so two are on disk at most
+        # one copy of checkpoint_00000.pt moves from run to run; the
+        # runs save no checkpoint (none is read, and a save of 4.9 GB
+        # takes 5-9 s: the start timed them)
+        writes[0] = False
         init = os.path.join(scratch, "w5m-checkpoint_00000.pt")
         config_yaml = os.path.join(scratch, "w5m-config.yaml")
         os.replace(os.path.join(run, "checkpoint_00000.pt"), init)
@@ -2215,7 +2478,6 @@ def w5m_phase(kernels, seed, scratch) -> dict:
                     "--tpu.on_device_sampling", "never", *flags]
             reset_counts(kernels)
             base = fresh_device_memory()
-            del saves[:]
             t0 = time.perf_counter()
             entry = cli.main(argv)
             torch.cuda.synchronize()
@@ -2227,7 +2489,6 @@ def w5m_phase(kernels, seed, scratch) -> dict:
                 ms_per_step=1e3 * entry["epoch_time"] / entry["batches"],
                 triples_per_s=n_train / entry["epoch_time"],
                 seconds_cli=time.perf_counter() - t0,
-                checkpoint_save_seconds=list(saves),
                 peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
                 device_memory_before_bytes=base,
                 sparse="Using row-sparse embedding updates." in log,
@@ -2239,6 +2500,19 @@ def w5m_phase(kernels, seed, scratch) -> dict:
     finally:
         TrainingJob._save = save
     os.remove(init)
+
+    # captured against per-batch and resumed, then the profiled windows
+    config = Config()
+    config.load(config_yaml, create=True)
+    dataset = Dataset.create(config)
+    deterministic = w5m_deterministic(config_yaml, dataset, scratch, kernels)
+    windows = {name: w5m_window(config_yaml, dataset, eager)
+               for name, eager in (("captured", False), ("eager", True))}
+    print("train wikidata5m captured vs eager windows: " + json.dumps(dict(
+        windows, speedup=windows["eager"]["ms_per_step_unprofiled"]
+        / windows["captured"]["ms_per_step_unprofiled"])), flush=True)
+    del dataset
+    fresh_device_memory()
     shutil.rmtree(dataset_folder)
 
     card, dense, host = (runs[k] for k in
@@ -2271,7 +2545,9 @@ def w5m_phase(kernels, seed, scratch) -> dict:
         dense_over_sparse=dense["ms_per_step"]
         / (1e3 * epoch["epoch_time"] / steps))), flush=True)
     return dict(launches=start_counts["adagrad_row_update"],
-                counts=start_counts, valid_counts=valid_counts)
+                counts=start_counts, valid_counts=valid_counts,
+                groups=start_groups, deterministic=deterministic,
+                windows=windows)
 
 
 # ----------------------------------------------------------------- K2 widths
@@ -2404,24 +2680,159 @@ def dropout_statistics(device):
     print("dropout on the card: " + json.dumps(out), flush=True)
 
 
+def started_captured(label: str, run: str, job, dispatches: int) -> dict:
+    """A training run on the card that must have captured its groups:
+    the log line and the replays (``check_replays``)."""
+    with open(os.path.join(run, "kge.log")) as f:
+        log = f.read()
+    line = f"Capturing groups of {GROUP} steps as CUDA graphs."
+    if line not in log:
+        fail(f"{label}: the log does not say {line!r}")
+    return check_replays(label, job, dispatches)
+
+
+@contextlib.contextmanager
+def captured_run(jobs: list, dispatches: list):
+    """Appends to ``jobs`` every training job created inside, and to
+    ``dispatches`` the host seconds of each of its group dispatches."""
+    with created_jobs(jobs), on_created_jobs(
+            lambda j: timed_dispatches(j, dispatches)):
+        yield
+
+
+def deterministic_runs(label: str, config_file: str, scratch: str,
+                       regroup: bool) -> dict:
+    """Under ``torch.use_deterministic_algorithms`` (the embedding
+    gradients' ``index_add_`` otherwise sums in the atomics' order), the
+    first DET_BATCHES batches of each epoch: 2 epochs captured in groups
+    of 4, the same at one step a dispatch (in the grouped run's batch
+    order where ``regroup``: KvsAll regroups by the group size), and 1
+    epoch resumed to 2. The epoch losses and every array of the epoch-2
+    checkpoints (parameters, model state, optimizer state) must be equal
+    bit for bit."""
+    from kge_tpu_torch import cli
+
+    folders, jobs = {}, []
+    torch.use_deterministic_algorithms(True)
+    try:
+        with first_batches(DET_BATCHES):
+            for name, argv, change in (
+                    ("grouped", ["--train.max_epochs", "2"], None),
+                    ("per_batch", ["--train.max_epochs", "2",
+                                   "--tpu.steps_per_dispatch", "1"],
+                     in_group_order(GROUP) if regroup else None),
+                    ("resumed", ["--train.max_epochs", "1"], None)):
+                folders[name] = os.path.join(scratch, f"{label}-det-{name}")
+                with on_created_jobs(change or (lambda job: None)), \
+                        created_jobs(jobs):
+                    cli.main(["start", config_file, "--folder",
+                              folders[name], "--valid.every", "0", *argv])
+            cli.main(["resume", folders["resumed"], "--train.max_epochs",
+                      "2"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grouped, per_batch = jobs[0], jobs[1]
+    if not grouped._capture or not grouped.graph_replays or (
+            per_batch._steps_per_dispatch() != 1):
+        fail(f"{label} deterministic runs: the grouped run was not "
+             "replayed, or the per-batch run was grouped")
+    del jobs[:], grouped, per_batch
+    losses = {name: [e["avg_loss"] for e in read_trace(
+        folder, event="epoch_completed", job="train")]
+        for name, folder in folders.items()}
+    arrays = {name: table_arrays(os.path.join(folder, "checkpoint_00002.pt"))
+              for name, folder in folders.items()}
+    checks = dict(
+        batches_an_epoch=DET_BATCHES, losses=losses,
+        per_batch_vs_grouped_max_abs=max_table_difference(
+            arrays["per_batch"], arrays["grouped"]),
+        resumed_vs_grouped_max_abs=max_table_difference(
+            arrays["resumed"], arrays["grouped"]))
+    print(f"{label} deterministic checks: " + json.dumps(checks), flush=True)
+    if (losses["per_batch"] != losses["grouped"]
+            or losses["resumed"] != losses["grouped"]
+            or checks["per_batch_vs_grouped_max_abs"] != 0.0
+            or checks["resumed_vs_grouped_max_abs"] != 0.0):
+        fail(f"{label}: captured groups, per-batch steps and the resumed "
+             f"run are not equal bit for bit: {checks}")
+    for folder in folders.values():
+        shutil.rmtree(folder)
+    return checks
+
+
+def window_numbers(entry: dict, device: dict, batch: int, unit: str,
+                   base: int) -> dict:
+    """ms a step, ``unit``/s (``batch`` a step), the device's busy share
+    and peak memory of a profiled window (``profile_run``'s result)."""
+    device_ms = sum(ms for ms, _ in device.values())
+    return {"seconds": entry["epoch_time"], "batches": entry["batches"],
+            "ms_per_step": 1e3 * entry["epoch_time"] / entry["batches"],
+            f"{unit}_per_s": entry["batches"] * batch / entry["epoch_time"],
+            "device_busy_share": device_ms / (1e3 * entry["epoch_time"]),
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+            "device_memory_before_bytes": base}
+
+
+def epoch2_window(label: str, run: str, scratch: str, eager: bool,
+                  batch: int = KVSALL_BATCH, unit: str = "queries") -> dict:
+    """Epoch 2 again from ``run``'s checkpoint_00000.pt, its first
+    PROFILE_STEPS steps: captured (epoch 1 whole before it, so every
+    group shape is captured before the window) or with ``eager`` the
+    same groups eagerly (epoch 1 cut to PROFILE_STEPS too); once without
+    a profiler (``ms_per_step_unprofiled``), once under torch.profiler.
+    Returns ``window_numbers``."""
+    from kge_tpu_torch import cli
+
+    def run_window(name, profiled):
+        folder = os.path.join(scratch, f"{label}-window-{name}")
+        copy_run(run, folder, "checkpoint_00000.pt")
+
+        def resume():
+            return cli.main(["resume", folder, "--train.max_epochs", "2",
+                             "--valid.every", "0"])
+
+        with first_batches(PROFILE_STEPS,
+                           epochs=None if eager else (2,)), \
+                on_created_jobs(eager_groups if eager
+                                else (lambda job: None)):
+            out = (profile_run(f"train {label}", "train.", resume,
+                               epoch_only=True, epoch=2) if profiled
+                   else resume())
+        shutil.rmtree(folder)
+        return out
+
+    plain = run_window("unprofiled", False)
+    base = fresh_device_memory()
+    entry, device = run_window("profiled", True)
+    out = dict(window_numbers(entry, device, batch, unit, base),
+               ms_per_step_unprofiled=1e3 * plain["epoch_time"]
+               / plain["batches"])
+    print(f"train {label} profiled window: " + json.dumps(out), flush=True)
+    return out
+
+
 def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
-    """The slice's main path: reciprocal ConvE by KvsAll at its published
+    """The ConvE main path: reciprocal ConvE by KvsAll at its published
     widths (``write_conve_config``) on the FB15k-237-size graph, 1 epoch
-    and a validation (through K2, 138 launches), resume to epoch 2; the
-    first HOST_BATCHES batches of epoch 1 again on the card and on the
-    host at dropout 0 (torch's CPU and CUDA generators draw other masks);
-    dropout by its statistics; a window of PROFILE_STEPS steps
-    profiled."""
+    and a validation (through K2, 138 launches), resume to epoch 2, both
+    in groups of 4 steps replayed as CUDA graphs (dropout and batch-norm
+    state inside them); the first HOST_BATCHES batches of epoch 1 again on
+    the card and on the host at dropout 0 (torch's CPU and CUDA
+    generators draw other masks); dropout by its statistics; captured
+    groups against per-batch steps and resume against an uninterrupted
+    run, bit for bit (``deterministic_runs``); windows of PROFILE_STEPS
+    steps profiled, captured and eager."""
     from kge_tpu_torch import cli
     from kge_tpu_torch.ops import rank_count as rc
 
     config_file = os.path.join(scratch, "conve.yaml")
     write_conve_config(config_file, dataset_folder, seed)
     run = os.path.join(scratch, "conve-run")
-    per_validation = []
+    per_validation, jobs, dispatches = [], [], []
     reset_counts(kernels)
     t0 = time.perf_counter()
-    with launches_per_validation(rc, per_validation):
+    with launches_per_validation(rc, per_validation), \
+            captured_run(jobs, dispatches):
         cli.main(["start", config_file, "--folder", run])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2429,20 +2840,28 @@ def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
     epochs = check_start("conve", run, start_counts, dict(
         rank_counts=VALID_LAUNCHES, shared_ce_loss=0,
         adagrad_row_update=0, sgd_row_update=0), 1)
+    replays = {"start": started_captured("conve start", run, jobs[0],
+                                         len(dispatches))}
     print(f"train conve start seconds_cli {seconds}; K2 launches per "
-          f"validation {per_validation}", flush=True)
+          f"validation {per_validation}; groups {replays['start']}",
+          flush=True)
     if per_validation != [VALID_LAUNCHES]:
         fail(f"ConvE's validations launched K2 {per_validation} times, "
              f"expected {VALID_LAUNCHES} each")
+    del jobs[:], dispatches[:]
 
     reset_counts(kernels)
-    resumed = cli.main(["resume", run, "--train.max_epochs", "2"])
+    with captured_run(jobs, dispatches):
+        resumed = cli.main(["resume", run, "--train.max_epochs", "2"])
     torch.cuda.synchronize()
     resume_counts = counts(kernels)
+    replays["resume"] = check_replays("conve resume", jobs[0],
+                                      len(dispatches))
+    del jobs[:], dispatches[:]
     print("train conve resume on the card: " + json.dumps(dict(
         epoch=resumed["epoch"], avg_loss=resumed["avg_loss"],
-        epoch_seconds=resumed["epoch_time"], launches=resume_counts)),
-        flush=True)
+        epoch_seconds=resumed["epoch_time"], launches=resume_counts,
+        groups=replays["resume"])), flush=True)
     if resumed["epoch"] != 2 or not math.isfinite(resumed["avg_loss"]):
         fail(f"the ConvE resume did not reach a finite epoch 2: {resumed}")
     expect_counts("the resumed ConvE epoch", resume_counts, dict(
@@ -2459,9 +2878,15 @@ def conve_phase(kernels, seed, scratch, dataset_folder) -> dict:
     if compared["avg_loss_relative_difference"] > 1e-3:
         fail(f"ConvE first {HOST_BATCHES} batches, card vs host: "
              f"{compared}")
-    profiled_window("conve", run, scratch, 3)
+    checks = deterministic_runs("conve", config_file, scratch, regroup=True)
+    windows = {name: epoch2_window(f"conve {name}", run, scratch, eager)
+               for name, eager in (("captured", False), ("eager", True))}
+    print("train conve captured vs eager windows: " + json.dumps(dict(
+        windows, speedup=windows["eager"]["ms_per_step_unprofiled"]
+        / windows["captured"]["ms_per_step_unprofiled"])), flush=True)
     return dict(start=start_counts, resume=resume_counts,
-                per_validation=per_validation,
+                per_validation=per_validation, replays=replays,
+                deterministic=checks, windows=windows,
                 queries_per_s=[e["size"] / e["epoch_time"] for e in epochs])
 
 

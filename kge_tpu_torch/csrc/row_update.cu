@@ -15,9 +15,16 @@
 //
 // Groups. One launch updates up to MAX_GROUPS tables (a training step's
 // entity and relation tables), each a group (table, sum, uniq, g, R, D,
-// index width, -lr, eps) of its own, passed by value in one
+// index width, lr, eps) of its own, passed by value in one
 // __grid_constant__ parameter struct. The positions of all groups are laid
 // end to end; a warp finds its group from the prefix offsets in the struct.
+//
+// Learning rate. A group carries a pointer to its learning rate, a float32
+// scalar on the device, which each warp reads and negates (-lr is exact, so
+// the bits are those of the float32 -lr a host would pass). A training
+// step read into a CUDA graph thus takes the rate the trainer writes into
+// its buffer before each epoch, and no value of it is baked into the
+// graph. eps stays by value.
 //
 // Duplicates. uniq is sorted; a run of equal ids carries its gradient only
 // at its last position (the caller's contract: the batch payload remaps
@@ -106,7 +113,7 @@ struct Group {
   int D;
   int wide_ids;  // 1: int64 ids, 0: int32
   int vec;       // 1: float4 lanes
-  float neg_lr;
+  const float* lr;  // a float32 scalar on the device
   float eps;
 };
 
@@ -155,7 +162,8 @@ __device__ __forceinline__ void update(float& t, float g, float neg_lr) {
 // (W = 4 floats a lane) or float (W = 1).
 template <bool ADAGRAD, typename V>
 __device__ __forceinline__ void update_row(const Group& gr, long long i,
-                                           long long id, int lane) {
+                                           long long id, int lane,
+                                           float neg_lr) {
   constexpr int W = sizeof(V) / sizeof(float);
   const int cols = gr.D / W;  // D % W == 0 where W == 4
   const V* g = reinterpret_cast<const V*>(gr.g) + i * cols;
@@ -167,10 +175,10 @@ __device__ __forceinline__ void update_row(const Group& gr, long long i,
     V tv = table[k];
     if (ADAGRAD) {
       V sv = sum[k];
-      update(tv, sv, gv, gr.neg_lr, gr.eps);
+      update(tv, sv, gv, neg_lr, gr.eps);
       sum[k] = sv;
     } else {
-      update(tv, gv, gr.neg_lr);
+      update(tv, gv, neg_lr);
     }
     table[k] = tv;
   }
@@ -188,6 +196,7 @@ __device__ __forceinline__ void update_rows(const Params& p) {
     while (k + 1 < MAX_GROUPS && at >= p.group[k + 1].first) ++k;
     const Group& gr = p.group[k];
     const long long i = at - gr.first;
+    const float neg_lr = -*gr.lr;
     // lane 0 reads the position's id, lane 1 its successor in the group
     // (-1 past the group's end), in one load
     long long id = -1;
@@ -200,9 +209,9 @@ __device__ __forceinline__ void update_rows(const Params& p) {
     // only the last position of a run of equal ids writes
     if (__shfl_sync(0xffffffffu, id, 1) == here) continue;
     if (gr.vec)
-      update_row<ADAGRAD, float4>(gr, i, here, lane);
+      update_row<ADAGRAD, float4>(gr, i, here, lane, neg_lr);
     else
-      update_row<ADAGRAD, float>(gr, i, here, lane);
+      update_row<ADAGRAD, float>(gr, i, here, lane, neg_lr);
   }
 }
 
@@ -245,18 +254,21 @@ int sm_count(int device) {
 
 }  // namespace
 
-// One group as the host packs it (Python: struct "<7q2f", 64 bytes).
+// One group as the host packs it (Python: struct "<8qf4x", 72 bytes).
 struct HostGroup {
   long long table, sum, uniq, g;  // device pointers; sum unused by SGD
+  long long lr;                   // device pointer to a float32 scalar
   long long R, D, index_bytes;    // index_bytes 4 (int32 ids) or 8
-  float neg_lr, eps;
+  float eps;
+  float unused;
 };
 
 extern "C" {
 
 // In place, in one launch, on the n <= MAX_GROUPS (4) tables of `groups`:
 // table [V, D], sum [V, D] (Adagrad), uniq [R] and g [R, D], float32 and
-// contiguous, on CUDA device `device`, enqueued on `stream`. Returns
+// contiguous, and lr a float32 scalar, on CUDA device `device`, enqueued on
+// `stream`. Returns
 // cudaGetLastError() after the launch (0 on success;
 // cudaErrorInvalidValue for more groups than the kernel takes); no launch
 // when every R is 0.
@@ -276,7 +288,7 @@ int kge_row_update(int adagrad, int n, const HostGroup* groups, int device,
     gr.R = h.R;
     gr.D = (int)h.D;
     gr.wide_ids = h.index_bytes == 8;
-    gr.neg_lr = h.neg_lr;
+    gr.lr = reinterpret_cast<const float*>(h.lr);
     gr.eps = h.eps;
     const unsigned long long bits = (unsigned long long)(h.table | h.g |
                                                          (adagrad ? h.sum : 0));

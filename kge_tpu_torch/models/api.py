@@ -59,7 +59,8 @@ class Ctx:
 
     ``state`` holds non-trainable tensors (batch-norm running statistics)
     read during the call; layers write updated values into ``updates``,
-    which the training job merges into the model state after the step.
+    which the training job copies into the model state's tensors after
+    the step (in place: a captured step reads them where they are).
 
     ``tables`` substitutes embedding tables for one call, by embedder name
     (``"entity_embedder"``, ``"relation_embedder"``): a row-sparse training
@@ -145,6 +146,26 @@ class Ctx:
         mask = torch.rand((total, *x.shape[1:]), generator=self.generator,
                           dtype=x.dtype, device=x.device) < keep
         return torch.where(mask[index], x / keep, 0.0)
+
+
+def _same_layout(a: Any, b: Any) -> bool:
+    """Whether two state trees have the same keys and tensor shapes."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            _same_layout(a[k], b[k]) for k in a)
+    return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.shape == b.shape)
+
+
+@torch.no_grad()
+def copy_state(target: Dict[str, Any], source: Mapping[str, Any]):
+    """Copy the tensors of ``source`` into those of ``target`` (a model
+    state tree holding at least ``source``'s keys), in place."""
+    for key, value in source.items():
+        if isinstance(value, Mapping):
+            copy_state(target[key], value)
+        else:
+            target[key].copy_(value)
 
 
 class BatchShard(NamedTuple):
@@ -482,13 +503,17 @@ class KgeModel(KgeBase):
     def load_state(self, tree: Mapping[str, Any]):
         """Take a ``kge_tpu``-layout state tree (numpy arrays), on this
         model's device; an empty tree gives the initial state, as in
-        ``kge_tpu``'s evaluation jobs."""
-        if not tree:
-            self.model_state = self.init_state()
-            return
-        self.model_state = tree_map(
+        ``kge_tpu``'s evaluation jobs. A tree of the current state's keys
+        and shapes is copied into its tensors in place (a captured
+        training step and the evaluation read them where they are);
+        another one replaces them."""
+        new = self.init_state() if not tree else tree_map(
             lambda a: torch.as_tensor(np.array(a, dtype=np.float32),
                                       device=self.device), tree)
+        if _same_layout(self.model_state, new):
+            copy_state(self.model_state, new)
+        else:
+            self.model_state = new
 
     def default_ctx(self) -> Ctx:
         """The eval-mode Ctx of a call that names none: no randomness, the

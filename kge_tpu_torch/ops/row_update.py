@@ -18,7 +18,12 @@ gradient at its last position only (the others hold zero rows).
 eps (``sum`` None and ``eps`` unused for SGD): on CUDA tensors one launch
 of the hand-written kernel of ``csrc/row_update.cu`` for up to
 ``MAX_GROUPS`` tables, so a training step updates every sparse table with
-one launch and one host call (``KgeOptimizer.sparse_row_update``).
+one launch and one host call (``KgeOptimizer.sparse_row_update``). The
+learning rate is a 0-d float32 tensor on the tables' device, which the
+kernel reads there (so a CUDA graph of a training step reads the rate
+the trainer writes before each epoch), or a host float, which the
+wrapper puts into such a tensor first; either gives the bits of
+``float32(-lr)``. ``eps`` is a host float.
 ``adagrad_row_update`` and ``sgd_row_update`` are its one-table calls.
 Each launch counts one in ``adagrad_row_update.launches`` or
 ``sgd_row_update.launches``. On CPU tensors the plain versions
@@ -33,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -44,19 +49,20 @@ MAX_GROUPS = 4
 _ID_TYPES = (torch.int32, torch.int64)
 
 Group = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor,
-              torch.Tensor, float, float]
+              torch.Tensor, Union[float, torch.Tensor], float]
 
 #: n groups as the kernel's entry point reads them (its ``HostGroup``):
-#: table, sum, uniq and rows_g pointers, R, D, index bytes, -lr, eps
-_PACKED = [struct.Struct("<" + "7q2f" * n) for n in range(MAX_GROUPS + 1)]
+#: table, sum, uniq, rows_g and lr pointers, R, D, index bytes, eps
+_PACKED = [struct.Struct("<" + "8qf4x" * n) for n in range(MAX_GROUPS + 1)]
 
 
 def adagrad_row_update_reference(table: torch.Tensor, sum: torch.Tensor,
                                  uniq: torch.Tensor, rows_g: torch.Tensor,
-                                 lr: float, eps: float):
+                                 lr: Union[float, torch.Tensor], eps: float):
     """Plain version of the Adagrad kernel, in place on ``table`` and
     ``sum``. Every position reads the rows as they were before the
-    update, and equal ids add up."""
+    update, and equal ids add up. ``lr`` a float or a 0-d float32
+    tensor: both multiply as float32."""
     g = rows_g
     srow = sum.index_select(0, uniq) + g * g
     u = g / (srow.sqrt() + eps)
@@ -65,7 +71,8 @@ def adagrad_row_update_reference(table: torch.Tensor, sum: torch.Tensor,
 
 
 def sgd_row_update_reference(table: torch.Tensor, uniq: torch.Tensor,
-                             rows_g: torch.Tensor, lr: float):
+                             rows_g: torch.Tensor,
+                             lr: Union[float, torch.Tensor]):
     """Plain version of the SGD kernel, in place on ``table``."""
     table.index_add_(0, uniq, -lr * rows_g)
 
@@ -129,14 +136,27 @@ def _check(name: str, table, ssum, uniq, rows_g) -> Tuple[int, int,
     return R, D, device
 
 
+def _device_lr(name: str, lr, device: torch.device) -> torch.Tensor:
+    """The learning rate as the kernel reads it: a 0-d float32 tensor on
+    ``device`` (a host float is filled into a new one)."""
+    if not isinstance(lr, torch.Tensor):
+        return torch.full((), float(lr), dtype=torch.float32, device=device)
+    if lr.dtype != torch.float32 or lr.dim() != 0 or lr.device != device:
+        raise ValueError(f"{name}: lr must be a float or a 0-d float32 "
+                         f"tensor on {device}, got {lr.dtype} "
+                         f"{tuple(lr.shape)} on {lr.device}")
+    return lr
+
+
 def row_update_groups(optimizer: str, groups: Sequence[Group],
                       name: str = "row_update_groups"):
     """Adagrad (``optimizer`` "adagrad": every group's ``sum`` a tensor)
     or SGD ("sgd": ``sum`` None, ``eps`` unused) on the ``uniq`` rows of
-    each group's table, in place; ``lr`` and ``eps`` are host floats. On
-    CUDA tensors one launch for all groups (none when every group has R =
-    0). The ids are not range-checked on the device: the caller keeps them
-    in ``[0, V)``."""
+    each group's table, in place; ``lr`` a host float or a 0-d float32
+    tensor on the tables' device, ``eps`` a host float. On CUDA tensors
+    one launch for all groups (none when every group has R = 0), on the
+    current stream, with no host sync. The ids are not range-checked on
+    the device: the caller keeps them in ``[0, V)``."""
     if optimizer not in ("adagrad", "sgd"):
         raise ValueError(f"{name}: optimizer must be adagrad or sgd, got "
                          f"{optimizer!r}")
@@ -145,7 +165,7 @@ def row_update_groups(optimizer: str, groups: Sequence[Group],
     if n > MAX_GROUPS:
         raise ValueError(f"{name}: {n} groups, the kernel takes at most "
                          f"{MAX_GROUPS}")
-    device, cuda, fields, rows = None, False, [], 0
+    device, cuda, fields, rows, rates = None, False, [], 0, []
     for k, (table, ssum, uniq, rows_g, lr, eps) in enumerate(groups):
         if adagrad and ssum is None:
             raise TypeError(f"{name}: Adagrad needs a sum tensor")
@@ -160,9 +180,11 @@ def row_update_groups(optimizer: str, groups: Sequence[Group],
             raise ValueError(f"{name}: group {k} is on {group_device}, "
                              f"group 0 on {device}")
         if cuda:
+            # kept alive until the launch is enqueued
+            rates.append(_device_lr(name, lr, device))
             fields += (table.data_ptr(), ssum.data_ptr() if adagrad else 0,
-                       uniq.data_ptr(), rows_g.data_ptr(), R, D,
-                       uniq.element_size(), -float(lr),
+                       uniq.data_ptr(), rows_g.data_ptr(),
+                       rates[-1].data_ptr(), R, D, uniq.element_size(),
                        float(eps) if adagrad else 0.0)
             rows += R
     if device is None:
@@ -186,8 +208,8 @@ def row_update_groups(optimizer: str, groups: Sequence[Group],
 
 
 def adagrad_row_update(table: torch.Tensor, sum: torch.Tensor,
-                       uniq: torch.Tensor, rows_g: torch.Tensor, lr: float,
-                       eps: float):
+                       uniq: torch.Tensor, rows_g: torch.Tensor,
+                       lr: Union[float, torch.Tensor], eps: float):
     """Adagrad on the ``uniq`` rows of ``table`` and ``sum``, in place: a
     one-group ``row_update_groups``."""
     row_update_groups("adagrad", ((table, sum, uniq, rows_g, lr, eps),),
@@ -195,7 +217,7 @@ def adagrad_row_update(table: torch.Tensor, sum: torch.Tensor,
 
 
 def sgd_row_update(table: torch.Tensor, uniq: torch.Tensor,
-                   rows_g: torch.Tensor, lr: float):
+                   rows_g: torch.Tensor, lr: Union[float, torch.Tensor]):
     """Plain SGD on the ``uniq`` rows of ``table``, in place: a one-group
     ``row_update_groups``."""
     row_update_groups("sgd", ((table, None, uniq, rows_g, lr, 0.0),),

@@ -303,13 +303,15 @@ class KgeOptimizer:
     def sparse_row_update(
             self, state: Dict[str, Dict[str, torch.Tensor]],
             rows: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
-            lrs: Dict[str, float]):
+            lrs: Mapping[str, Any]):
         """The optimizer step on the touched rows of every sparse table of
         a step, in place: ``rows`` maps a table's name to ``(uniq,
         row_grads)``, its sorted row ids and their gradient rows (a run of
         equal ids carries its gradient at its last position). Each table
-        keeps its group's ``lr`` and ``eps``. One launch of the row-update
-        kernel for all tables on a card, its plain version on the host.
+        keeps its group's ``lr`` (a float, or the 0-d device tensor the
+        training job fills before each epoch, which the kernel reads on
+        the device) and ``eps``. One launch of the row-update kernel for
+        all tables on a card, its plain version on the host.
         Exact counterpart of torch sparse Adagrad / plain SGD on sparse
         gradients."""
         sgd = self.opt_type == "sgd"

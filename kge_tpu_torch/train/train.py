@@ -6,13 +6,17 @@ checkpoint rotation follow ``kge_tpu``. The step is plain PyTorch on one
 device: the subbatch losses (each divided by the true batch size) and
 their backward passes, the penalty and its backward, then the optimizer
 and the parameter constraints. Each subbatch (and the penalty) runs in a
-training ``Ctx`` whose dropout generator is seeded from
-``random_seed.torch``, the epoch, the step and the subbatch, so a resumed
-run draws the masks of the uninterrupted one (the torch and JAX PRNG
-streams differ: masks are held by their statistics, trajectories at
-dropout 0). The model state (ConvE's batch-norm statistics) goes through
-each step as in ``kge_tpu``: every subbatch reads the step's state, the
-last subbatch's updates win, and checkpoints carry it. In a row-sparse run
+training ``Ctx`` that draws its dropout masks from the job's dropout
+generator, seeded once an epoch from ``random_seed.torch`` and the epoch
+(``_seed_generators``), so a resumed run draws the masks of the
+uninterrupted one, and grouped steps draw what the same steps one by one
+would (the torch and JAX PRNG streams differ: masks are held by their
+statistics, trajectories at dropout 0). The model state (ConvE's
+batch-norm statistics) goes through each step as in ``kge_tpu``: every
+subbatch reads the step's state, the last subbatch's updates win, and
+they are copied into the state's tensors in place (``copy_state``), so
+those tensors stay where a captured graph and the evaluation read them;
+checkpoints carry it. In a row-sparse run
 (``_sparse_table_paths``) the loss reads the rows the strategy gathered
 (``_step_context``) and the optimizer updates only those rows of the
 tables. As in ``kge_tpu``, every batch is padded to
@@ -38,18 +42,21 @@ rest on the device). On a card a group of k steps is captured once per
 group of a job runs eagerly on the capture stream (its warm-up: autograd,
 the cuBLAS workspace of that stream, the kernels' attributes), the next
 ones replay the graph after their inputs were copied into its buffers.
-Learning rates are device tensors filled before each epoch, the Adam
-family's bias corrections go up with each group, the sampling generator
-is registered with each graph (replays draw what the eager steps would),
-and the kernel launch counters gain a graph's captured launches on each
-replay. ``_capture_unsupported_reasons`` is the predicate that keeps a
-job's groups eager (logged once): dropout, whose generator the host
-reseeds every step; model state carried between steps (batch-norm
-statistics, an R-GNN encoder's graph); graph sampling; row-sparse steps.
-Such groups, and every group on the CPU, run their k steps eagerly with
-the same math. A capture or replay that fails raises. ``_prefetch`` runs
-the batch generator in a producer thread (``tpu.prefetch_batches``,
-``train.num_workers``); its draws and order are the serial loop's.
+Learning rates are device tensors filled before each epoch (the
+row-update kernel of a row-sparse step reads its rate there too), the
+Adam family's bias corrections go up with each group, the sampling and
+dropout generators are registered with each graph (replays draw what
+the eager steps would), the model state is updated in place, a
+row-sparse step's row payload goes into the graph's buffers with the
+rest of the batch, and the kernel launch counters gain a graph's
+captured launches on each replay. ``_capture_unsupported_reasons`` is
+the predicate that keeps a job's groups eager (logged once): an R-GNN
+encoder (its graph and output kept between calls), graph sampling, a
+device mesh. Such groups, and every group on the CPU, run their k steps
+eagerly with the same math. A capture or replay that fails raises.
+``_prefetch`` runs the batch generator in a producer thread
+(``tpu.prefetch_batches``, ``train.num_workers``); its draws and order
+are the serial loop's.
 
 Under ``tpu.compute_dtype: bfloat16`` the embedders hand the scorers
 bf16 embeddings in training (``LookupEmbedder._cast``); parameters,
@@ -75,7 +82,8 @@ them once; the epoch's metrics are summed over the data group in its one
 fetch. ``train.batch_size`` rounds up to divide the data axis. Rank 0
 alone writes checkpoints (gathered from the shards by every rank, then a
 barrier); the other ranks log to ``<folder>/proc<i>/``. Steps under a
-mesh run eagerly (``_capture_unsupported_reasons``).
+mesh run eagerly (``_capture_unsupported_reasons``: their collectives are
+not captured).
 
 Not ported here: row chunking.
 """
@@ -95,8 +103,9 @@ from torch.profiler import record_function
 from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models import Ctx, KgeModel
-from kge_tpu_torch.models.api import BatchShard
+from kge_tpu_torch.models.api import BatchShard, copy_state
 from kge_tpu_torch.ops.negsamp_loss import shared_ce_loss
+from kge_tpu_torch.ops.row_update import adagrad_row_update, sgd_row_update
 from kge_tpu_torch.parallel import distributed as dist
 from kge_tpu_torch.parallel import mesh as mesh_lib
 from kge_tpu_torch.train.job import Job, TrainingOrEvaluationJob
@@ -110,10 +119,10 @@ from kge_tpu_torch.utils.seed import (
 )
 from kge_tpu_torch.utils.trace import format_trace_entry
 
-#: the counted kernel wrappers a captured step can call (``launches``;
-#: row-sparse steps, K3's, are not captured): a graph replay adds the
-#: launches its capture recorded
-COUNTED_KERNELS = (shared_ce_loss,)
+#: the counted kernel wrappers a captured step can call (``launches``):
+#: the fused loss and the row updates; a graph replay adds the launches
+#: its capture recorded
+COUNTED_KERNELS = (shared_ce_loss, adagrad_row_update, sgd_row_update)
 
 
 def _prefetch(gen, depth: int):
@@ -171,16 +180,6 @@ def _prefetch(gen, depth: int):
         except queue.Empty:
             pass
         thread.join()
-
-
-def _uses_dropout(model: torch.nn.Module) -> bool:
-    """Whether a module of ``model`` has a dropout rate above 0 (an
-    attribute whose name holds ``dropout``: an embedder's
-    ``dropout_rate``, ConvE's ``feature_map_dropout``, ...)."""
-    return any(
-        isinstance(v, (int, float)) and not isinstance(v, bool) and v > 0
-        for m in model.modules() for name, v in vars(m).items()
-        if "dropout" in name)
 
 
 class _Graph(NamedTuple):
@@ -262,10 +261,9 @@ class TrainingJob(TrainingOrEvaluationJob):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.generator = torch_generator_from_config(config, self.device)
-        #: dropout's generator, reseeded per subbatch (``_dropout_generator``)
+        #: the generators of dropout's masks and of the draws made on the
+        #: device (negatives), reseeded per epoch (``_seed_generators``)
         self._dropout_gen = torch_generator_from_config(config, self.device)
-        #: the generator of draws made on the device (negatives), reseeded
-        #: per epoch (``_seed_sampling``)
         self._sampling_gen = torch_generator_from_config(config, self.device)
         self._torch_seed = rng_seed_from_config(config, "torch")
         #: captured groups by (signature, k) and their replays so far
@@ -361,28 +359,17 @@ class TrainingJob(TrainingOrEvaluationJob):
         sampling gathers them in a row-sparse run)."""
         return Ctx(train=True, state=self.model.model_state), {}
 
-    def _dropout_generator(self, step: int, part: int) -> torch.Generator:
-        """The generator of the dropout masks of one part of a step (a
-        subbatch, or -1 for the penalty): seeded from
-        ``random_seed.torch``, the epoch, the step and the part, so a
-        resumed run draws the uninterrupted run's masks; an unseeded job
-        draws from one stream."""
-        # a captured step draws no dropout (_capture_unsupported_reasons),
-        # and a CUDA generator cannot be reseeded while a graph is captured
-        capturing = (self.device.type == "cuda"
-                     and torch.cuda.is_current_stream_capturing())
-        if self._torch_seed >= 0 and not capturing:
-            self._dropout_gen.manual_seed(
-                derived_seed(self._torch_seed, self.epoch, step, part))
-        return self._dropout_gen
-
-    def _seed_sampling(self, epoch: int):
-        """Reseed the generator of the device's draws for ``epoch`` from
-        ``random_seed.torch``, so a resumed run draws the uninterrupted
-        run's from epoch k on; an unseeded job keeps one stream."""
+    def _seed_generators(self, epoch: int):
+        """Reseed the generators of the device's draws and of dropout's
+        masks for ``epoch`` from ``random_seed.torch`` (outside any
+        capture: a CUDA generator cannot be reseeded while a graph is
+        captured), so a resumed run draws the uninterrupted run's from
+        epoch k on; an unseeded job keeps one stream of each."""
         if self._torch_seed >= 0:
             self._sampling_gen.manual_seed(
                 derived_seed(self._torch_seed, epoch, "sampling"))
+            self._dropout_gen.manual_seed(
+                derived_seed(self._torch_seed, epoch, "dropout"))
 
     def _expand_device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Strategy hook: the batch's content made on the device from a
@@ -409,22 +396,16 @@ class TrainingJob(TrainingOrEvaluationJob):
         """Why this job's groups of steps cannot be captured into CUDA
         graphs as they stand (empty when they can). A graph replays fixed
         device work on fixed buffers, so a step must not depend on the
-        host between steps: no generator the host reseeds every step, no
-        state handed from step to step in Python, no host payload of
-        another shape."""
+        host between steps: no tensor rebound between steps, no
+        collective outside the graph, no host payload of another shape.
+        Dropout (its generator registered with the graph), the model
+        state (updated in place) and row-sparse steps (their row payload
+        in the graph's buffers, the learning rate read on the device)
+        are captured."""
         reasons = []
-        if _uses_dropout(self.model):
-            reasons.append("dropout draws its masks from a generator the "
-                           "host reseeds every step")
-        if self.model.model_state:
-            reasons.append("the model carries state between steps "
-                           "(batch-norm statistics)")
         if hasattr(self.model, "set_graph"):
             reasons.append("an R-GNN encoder keeps its graph and its "
                            "output between calls")
-        if self._sparse_paths:
-            reasons.append("row-sparse steps update rows the host chose, "
-                           "at learning rates passed by value")
         if self.mesh is not None:
             reasons.append("steps under a device mesh run their collectives "
                            "eagerly (collectives are not captured into "
@@ -450,12 +431,12 @@ class TrainingJob(TrainingOrEvaluationJob):
                         f"{self._steps_per_dispatch()} steps as CUDA graphs.")
         return self._capture
 
-    def _part_context(self, ctx: Ctx, step: int, part: int,
+    def _part_context(self, ctx: Ctx,
                       shard: Optional[BatchShard] = None) -> Ctx:
         """A fresh training Ctx for one part of a step: the step's state
-        and tables, its own dropout generator, no updates yet; under a
-        mesh, the rows of the part this rank computes."""
-        return Ctx(train=True, generator=self._dropout_generator(step, part),
+        and tables, the dropout generator, no updates yet; under a mesh,
+        the rows of the part this rank computes."""
+        return Ctx(train=True, generator=self._dropout_gen,
                    state=ctx.state, tables=ctx.tables, shard=shard)
 
     def _prepare(self):
@@ -549,11 +530,10 @@ class TrainingJob(TrainingOrEvaluationJob):
                 offset += g.numel()
 
     def _step(self, batch: Dict[str, Any], lrs: Dict[str, Any],
-              step: int = 0,
               correction: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
-        """One train step (the epoch's ``step``-th) on an uploaded batch;
-        returns its metrics as 0-d device tensors (no host sync).
+        """One train step on an uploaded batch; returns its metrics as
+        0-d device tensors (no host sync).
         ``lrs``: each group's learning rate (a float or a 0-d device
         tensor); ``correction``: this step's Adam bias corrections on the
         device (``KgeOptimizer.advance``; by default the optimizer
@@ -566,8 +546,8 @@ class TrainingJob(TrainingOrEvaluationJob):
             with torch.no_grad(), record_function("train.forward"):
                 total = sum(
                     self._subbatch_loss(
-                        self._part_context(ctx, step, i, shard), batch, sl)
-                    for i, (sl, shard) in enumerate(parts))
+                        self._part_context(ctx, shard), batch, sl)
+                    for sl, shard in parts)
             return {"avg_loss": total, "avg_penalty": torch.zeros_like(total),
                     "avg_cost": total}
 
@@ -578,9 +558,9 @@ class TrainingJob(TrainingOrEvaluationJob):
             ctx, rows = self._step_context(batch)
         total_loss = 0.0
         updates: Dict[str, Any] = {}
-        for i, (sl, shard) in enumerate(parts):
+        for sl, shard in parts:
             with record_function("train.forward"):
-                part = self._part_context(ctx, step, i, shard)
+                part = self._part_context(ctx, shard)
                 value = self._subbatch_loss(part, batch, sl)
             if isinstance(value, torch.Tensor):
                 if value.requires_grad:
@@ -593,7 +573,7 @@ class TrainingJob(TrainingOrEvaluationJob):
 
         with record_function("train.forward"):
             terms = self.model.penalties(
-                self._part_context(ctx, step, -1),
+                self._part_context(ctx),
                 batch=self._penalty_batch(batch)
             )
             # every rank computes the whole penalty: each counts for its
@@ -622,8 +602,8 @@ class TrainingJob(TrainingOrEvaluationJob):
                 self.optimizer.sparse_row_update(
                     self.opt_state, self._owned_rows(rows), lrs)
             self.model.normalize_params()
-        if updates:
-            self.model.model_state = {**self.model.model_state, **updates}
+            # in place: a captured graph and the evaluation read them there
+            copy_state(self.model.model_state, updates)
         return {
             "avg_loss": total_loss,
             "avg_penalty": penalty_total,
@@ -650,13 +630,13 @@ class TrainingJob(TrainingOrEvaluationJob):
     def _group_steps(self, k: int, lrs: Dict[str, Any],
                      resident: Optional[Dict[str, torch.Tensor]] = None
                      ) -> Callable:
-        """The k steps of one group as ``run(inputs, first)``: step i reads
+        """The k steps of one group as ``run(inputs)``: step i reads
         its batch from ``inputs`` (host batches stacked on a leading k
         axis) or, with a ``resident`` epoch payload, from its row
         ``inputs["_start"] + i``, and its Adam bias corrections from
         ``inputs["_corrections"][i]``; returns the metric names and their
         values [k, n]. The math is k per-batch steps'."""
-        def run(inputs: Dict[str, torch.Tensor], first: int):
+        def run(inputs: Dict[str, torch.Tensor]):
             corrections = inputs.get("_corrections")
             names, rows = [], []
             for i in range(k):
@@ -668,7 +648,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                     batch = {key: v.index_select(0, at).squeeze(0)
                              for key, v in resident.items()}
                 metrics = self._step(
-                    batch, lrs, first + i,
+                    batch, lrs,
                     None if corrections is None else corrections[i])
                 names = list(metrics)
                 rows.append(torch.stack([metrics[n] for n in names]))
@@ -676,17 +656,16 @@ class TrainingJob(TrainingOrEvaluationJob):
         return run
 
     def _dispatch_group(self, key, host: Dict[str, np.ndarray],
-                        run: Callable, first: int
-                        ) -> Tuple[List[str], torch.Tensor]:
+                        run: Callable) -> Tuple[List[str], torch.Tensor]:
         """One group of steps: eagerly (on the CPU, or where
         ``_captures`` says no), else by replaying its captured graph (the
         first group of each key runs eagerly as the capture's warm-up).
         ``host``: the group's inputs as host arrays."""
         if not self._captures():
-            return run(self._put_batch(host), first)
+            return run(self._put_batch(host))
         entry = self._graphs.get(key)
         if entry is None:
-            return self._capture_group(key, host, run, first)
+            return self._capture_group(key, host, run)
         t0 = time.time()
         with record_function("train.upload"):
             for name, buffer in entry.inputs.items():
@@ -700,8 +679,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         return entry.names, entry.out.clone()
 
     def _capture_group(self, key, host: Dict[str, np.ndarray],
-                       run: Callable, first: int
-                       ) -> Tuple[List[str], torch.Tensor]:
+                       run: Callable) -> Tuple[List[str], torch.Tensor]:
         """Run this group eagerly on the capture stream (the warm-up, as
         PyTorch's whole-network capture wants: autograd's lazy state, the
         cuBLAS workspace of that stream, each kernel's attributes), then
@@ -715,15 +693,16 @@ class TrainingJob(TrainingOrEvaluationJob):
             self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            names, out = run(inputs, first)
+            names, out = run(inputs)
             buffers = {name: t.clone() for name, t in inputs.items()}
         current.wait_stream(stream)
         out.record_stream(current)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._sampling_gen)
+        graph.register_generator_state(self._dropout_gen)
         before = [w.launches for w in COUNTED_KERNELS]
         with torch.cuda.graph(graph, stream=stream):
-            _, captured = run(buffers, first)
+            _, captured = run(buffers)
         launches = []
         for wrapper, n in zip(COUNTED_KERNELS, before):
             if wrapper.launches != n:
@@ -862,13 +841,10 @@ class TrainingJob(TrainingOrEvaluationJob):
 
     def _epoch_lrs(self) -> Dict[str, Any]:
         """Each group's learning rate for this epoch: 0-d views of one
-        device buffer, filled here, which captured steps read; floats in
-        a row-sparse run (its steps are never captured, and the
-        row-update kernel takes them by value)."""
+        float32 device buffer, filled here, which captured steps read
+        (the dense update and the row-update kernel alike)."""
         scale = self.lr_scheduler.lr_scale(self.epoch)
         lrs = {g: base * scale for g, base in self.optimizer.base_lrs.items()}
-        if self._sparse_paths:
-            return lrs
         if self._lr_buffer is None:
             self._lr_buffer = torch.empty(len(lrs), dtype=torch.float32,
                                           device=self.device)
@@ -892,14 +868,14 @@ class TrainingJob(TrainingOrEvaluationJob):
         for f in self.pre_epoch_hooks:
             f(self)
         lrs = self._epoch_lrs()
-        self._seed_sampling(self.epoch)
+        self._seed_generators(self.epoch)
         epoch_start = time.time()
         self._prepare_time = 0.0
         batch_metrics: List[Tuple[np.ndarray, List[str], list]] = []
         num_batches = 0
         group_size = self._steps_per_dispatch()
 
-        def flush(buffered, start_index, sig):
+        def flush(buffered, sig):
             """A full group as one dispatch, else batch by batch."""
             k = len(buffered)
             sizes = np.asarray([float(b["size"]) for b in buffered])
@@ -910,7 +886,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                     self._group_corrections(host, k)
                 self._prepare_time += time.time() - t0
                 names, values = self._dispatch_group(
-                    (sig, k), host, self._group_steps(k, lrs), start_index)
+                    (sig, k), host, self._group_steps(k, lrs))
                 batch_metrics.append((sizes, names, [values]))
                 return
             for i, batch_np in enumerate(buffered):
@@ -918,7 +894,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                 with record_function("train.upload"):
                     batch = self._put_batch(batch_np)
                 self._prepare_time += time.time() - t0
-                metrics = self._step(batch, lrs, start_index + i)
+                metrics = self._step(batch, lrs)
                 names = list(metrics)
                 batch_metrics.append(
                     (sizes[i:i + 1], names, [metrics[n] for n in names]))
@@ -949,14 +925,14 @@ class TrainingJob(TrainingOrEvaluationJob):
                 host = {"_start": np.asarray([d], dtype=np.int64)}
                 self._group_corrections(host, k)
                 names, values = self._dispatch_group(
-                    ("epoch", k), host, run, d)
+                    ("epoch", k), host, run)
                 batch_metrics.append((
                     np.asarray(resident_np["size"][d:d + k],
                                dtype=np.float64), names, [values]))
             num_batches = M
             if full < M:  # a tail shorter than k: per-batch steps
                 flush([{key: v[j] for key, v in resident_np.items()}
-                       for j in range(full, M)], full, None)
+                       for j in range(full, M)], None)
             return self._finish_epoch(batch_metrics, num_batches,
                                       epoch_start)
 
@@ -980,19 +956,18 @@ class TrainingJob(TrainingOrEvaluationJob):
                 # (KvsAll interleaves query types and label widths)
                 sig = signature(batch_np) if group_size > 1 else None
                 if buffered and sig != buffered_sig:
-                    flush(buffered, num_batches - len(buffered),
-                          buffered_sig)
+                    flush(buffered, buffered_sig)
                     buffered = []
                 buffered.append(batch_np)
                 buffered_sig = sig
                 num_batches += 1
                 if len(buffered) == group_size:
-                    flush(buffered, num_batches - len(buffered), sig)
+                    flush(buffered, sig)
                     buffered = []
                 for f in self.post_batch_hooks:
                     f(self)
         if buffered:
-            flush(buffered, num_batches - len(buffered), buffered_sig)
+            flush(buffered, buffered_sig)
         return self._finish_epoch(batch_metrics, num_batches, epoch_start)
 
     def _resident_payload(self, resident_np: Dict[str, np.ndarray]
@@ -1110,6 +1085,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         if checkpoint["type"] != "train":
             raise ValueError("training can only be continued from trained models")
         self.model.load_params(checkpoint["model"]["params"])
+        # into the state's tensors, where a captured graph reads them
         self.model.load_state(checkpoint["model"].get("state", {}))
         if checkpoint.get("opt_state") is not None and not self.is_forward_only:
             self.optimizer.load_state(self.opt_state, checkpoint["opt_state"])

@@ -63,6 +63,7 @@ from kge_tpu_torch.models import Ctx, KgeModel, ReciprocalRelationsModel
 from kge_tpu_torch.models.embedder.lookup import LookupEmbedder
 from kge_tpu_torch.ops.gather import row_gather
 from kge_tpu_torch.ops.negsamp_loss import expand_counts, shared_ce_loss
+from kge_tpu_torch.parallel import distributed as dist
 from kge_tpu_torch.parallel.collectives import vocab_lookup
 from kge_tpu_torch.train.graph_util import (
     sample_edge_neighbourhood, sample_uniform,
@@ -81,7 +82,8 @@ from kge_tpu_torch.utils.seed import rng_seed_from_config
 SPARSE_TABLES = ("entity_embedder.weights", "relation_embedder.weights")
 
 #: ``kge_tpu``'s TPU-runtime forms of the row-sparse step and their
-#: defaults; none changes a number, and the port has one form
+#: defaults; none changes a number, and the port has one form: they set
+#: its group size only (``_steps_per_dispatch``)
 _TPU_SPARSE_OPTIONS = {
     "tpu.sparse_table_chunks": "auto",
     "tpu.sparse_scatter_limit_bytes": "1073741824",
@@ -130,10 +132,11 @@ class TrainingJobNegativeSampling(TrainingJob):
         for key, default in _TPU_SPARSE_OPTIONS.items():
             if str(config.get(key)) != default:
                 config.log(
-                    f"{key} is ignored: kge_tpu_torch updates each table as "
-                    "one tensor in place (the row-update kernel on a card, "
-                    "its plain version on the host); kge_tpu gives the same "
-                    "numbers with any setting")
+                    f"{key} sets the steps a dispatch only, as in kge_tpu: "
+                    "kge_tpu_torch updates each table as one tensor in "
+                    "place (the row-update kernel on a card, its plain "
+                    "version on the host); kge_tpu gives the same numbers "
+                    "with any setting")
         if mode == "never":
             return ()
         m = self.model
@@ -336,11 +339,73 @@ class TrainingJobNegativeSampling(TrainingJob):
         return slots
 
     def _steps_per_dispatch(self) -> int:
-        """Row-sparse runs take one step a dispatch (``kge_tpu`` does at
-        Wikidata5M size, ``_sparse_host_loop_only``)."""
-        if self._sparse_paths:
+        """``kge_tpu``'s group size of a row-sparse run: 1 where its
+        ``_sparse_host_loop_only`` holds (a split-phase or
+        pipelined-gather step, or a table buffer over
+        ``tpu.sparse_scatter_limit_bytes`` after its row chunks), at
+        least 16 where it scans its row working set
+        (``tpu.sparse_group_rowset: always`` with chunked tables), else
+        ``tpu.steps_per_dispatch``: at the defaults its tables are
+        chunked under the limit (``tpu.sparse_table_chunks: auto``), so
+        it scans groups of 4 steps at Wikidata5M size too."""
+        group = super()._steps_per_dispatch()
+        if not self._sparse_paths:
+            return group
+        config = self.config
+        modes = {key: config.check(f"tpu.sparse_{key}",
+                                   ["auto", "always", "never"])
+                 for key in ("split_phases", "pipelined_gather",
+                             "group_rowset")}
+        if "always" in (modes["split_phases"], modes["pipelined_gather"]):
+            return 1  # host-side pending state between steps
+        limit = int(config.get("tpu.sparse_scatter_limit_bytes"))
+        chunks = self._table_chunks(limit)
+        shards = self.mesh.shape["model"] if self.mesh is not None else 1
+        per_buffer = 0
+        for path, emb in zip(SPARSE_TABLES, (self.model.get_s_embedder(),
+                                             self.model.get_p_embedder())):
+            rows = emb.padded_vocab_size
+            k = chunks.get(path, 1)
+            if k > 1:  # kge_tpu's chunk_rows: a ceil split, 8-row aligned
+                per_chunk = -(-rows // k)
+                rows = -(-per_chunk // 8) * 8
+            per_buffer = max(per_buffer, rows * emb.dim * 4 // shards)
+        if per_buffer > limit:
             return 1
-        return super()._steps_per_dispatch()
+        if group > 1 and chunks and modes["group_rowset"] == "always":
+            group = max(group, 16)  # kge_tpu amortizes its delta scatter
+        return group
+
+    def _table_chunks(self, limit: int) -> Dict[str, int]:
+        """``kge_tpu``'s row chunks of each sparse table
+        (``_resolve_table_chunks``): ``tpu.sparse_table_chunks`` auto
+        splits a table over ``limit`` bytes into ceil(bytes / limit),
+        ``never`` none, a count each table; none with the monolithic row
+        kernel (``tpu.sparse_row_kernel: always``), under a mesh or over
+        several processes. Only tables of more than one chunk."""
+        raw = str(self.config.get("tpu.sparse_table_chunks")).strip()
+        if (raw == "never"
+                or self.config.get("tpu.sparse_row_kernel") == "always"
+                or self.mesh is not None or dist.process_count() > 1):
+            return {}
+        if raw != "auto":
+            try:
+                forced = int(raw)
+            except ValueError:
+                raise ValueError(
+                    "tpu.sparse_table_chunks must be auto, never, or a "
+                    f"chunk count; got {raw!r}")
+        out = {}
+        for path, emb in zip(SPARSE_TABLES, (self.model.get_s_embedder(),
+                                             self.model.get_p_embedder())):
+            table_bytes = emb.padded_vocab_size * emb.dim * 4
+            if raw == "auto":
+                k = max(1, -(-table_bytes // limit)) if limit > 0 else 1
+            else:
+                k = max(1, forced)
+            if k > 1:
+                out[path] = k
+        return out
 
     def _capture_unsupported_reasons(self):
         reasons = super()._capture_unsupported_reasons()

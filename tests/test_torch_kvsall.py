@@ -87,8 +87,8 @@ def run_both(options, tmp_path):
     want, got = record_epochs(jax_run), record_epochs(port_run)
     groups = []
     dispatch = port_run._dispatch_group
-    port_run._dispatch_group = lambda key, host, run, first: (
-        groups.append(key), dispatch(key, host, run, first))[1]
+    port_run._dispatch_group = lambda key, host, run: (
+        groups.append(key), dispatch(key, host, run))[1]
     jax_run.run()
     port_run.run()
     np.testing.assert_allclose(first_batch_loss(port_run.config.folder),

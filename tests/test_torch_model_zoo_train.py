@@ -215,8 +215,8 @@ def test_checkpoints_cross_over_with_state(name, tmp_path):
 def test_dropout_resume_draws_the_same_masks(tmp_path):
     """Reciprocal ConvE with its default dropout (0.2 on both embedders,
     0.2 feature maps, 0.3 projection): a run resumed after epoch 1 equals
-    the uninterrupted run (the masks are seeded by the epoch, step and
-    subbatch), and dropout changes the losses."""
+    the uninterrupted run (the masks' stream is seeded by the epoch), and
+    dropout changes the losses."""
     model, reciprocal, options = CASES["reciprocal-conve-kvsall-adam"]
     dropout = {k: v for k, v in options.items()
                if k not in NO_CONVE_DROPOUT}

@@ -201,9 +201,10 @@ def test_workaround_options_are_logged_as_ignored(tmp_path):
     assert job._sparse_paths == TABLES
     with open(os.path.join(job.config.folder, "kge.log")) as f:
         log = f.read()
+    # they change no number; as in kge_tpu they set the steps a dispatch
     for key in ("tpu.sparse_table_chunks", "tpu.sparse_row_kernel"):
-        assert f"{key} is ignored" in log
-    assert "tpu.sparse_split_phases is ignored" not in log
+        assert f"{key} sets the steps a dispatch only" in log
+    assert "tpu.sparse_split_phases sets" not in log
 
 
 @pytest.mark.parametrize("options", [
