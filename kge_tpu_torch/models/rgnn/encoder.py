@@ -32,6 +32,14 @@ through one gather of the last layer's output.
 engages on the card within ``gnn_dense_adjacency_limit_bytes`` (never on
 the host, never under a model axis above 1), ``always`` raises where the
 adjacency does not apply, and the matrix is stored in float32 or bf16.
+
+A training forward of the encoder is the ``record_function`` span
+``train.encode`` (its layers name ``train.encode.messages`` and
+``train.encode.aggregate`` inside it). While a profiler records, its
+backward is the span ``train.encode.backward`` on autograd's thread
+(``backward_span``): gradient hooks open it at the first gradient of the
+encoder's outputs and close it once its inputs' gradients are complete.
+Without a profiler no hook is registered.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from kge_tpu_torch.models.rgnn.layers import (
     MessagePassingLayer,
     RgcnLayer,
     WeightedGCNLayer,
+    train_span,
 )
 from kge_tpu_torch.ops.segment import degree_norm
 from kge_tpu_torch.parallel import distributed as dist
@@ -215,6 +224,38 @@ def build_halo_layout(graph: Dict[str, Any], keys: Tuple[str, ...], P: int,
             out[f"{key}_src"].append(src[pos] - p * S)
             out[f"{key}_slot"].append(slot)
     return out
+
+
+def backward_span(outputs, inputs):
+    """The profiler span ``train.encode.backward`` over the backward from
+    ``outputs`` to ``inputs``, on the thread that runs it: opened by the
+    first gradient hook of ``outputs``, closed once every gradient of
+    ``inputs`` that the backward computes is complete (or when the
+    backward ends, if none is). Only inputs that an op made carry the
+    hooks (a leaf's hook would outlive the graph). The hooks read the
+    gradients and change nothing; register them only while a profiler
+    records."""
+    outputs = [t for t in outputs if t.requires_grad]
+    inputs = [t for t in inputs if t.grad_fn is not None]
+    if not outputs or not inputs:
+        return
+    record = None
+
+    def close(*_):
+        nonlocal record
+        if record is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(record)
+            record = None
+
+    def open_(_):
+        nonlocal record
+        if record is None:
+            record = torch.ops.profiler._record_function_enter_new(
+                "train.encode.backward", None)
+            torch.autograd.Variable._execution_engine.queue_callback(close)
+
+    torch.autograd.graph.register_multi_grad_hook(outputs, open_, mode="any")
+    torch.autograd.graph.register_multi_grad_hook(inputs, close, mode="all")
 
 
 class Rgnn(KgeBase):
@@ -550,15 +591,18 @@ class RgnnEncoder(KgeBase):
         cache_key = f"{self.configuration_key}.encoded"
         if self.use_stale_embeddings and cache_key in ctx.cache:
             return ctx.cache[cache_key]
-        halo = self._graph.get("halo")
-        if halo is not None:
-            x = self.entity_embedder.embed_block(ctx, halo["rows"])
-        else:
-            x = self.entity_embedder.embed_all(ctx)
-        r = self.relation_embedder.embed_all(ctx)
-        x, r = self.rgnn(x, r, self._graph, ctx)
-        if not self.reciprocal_scorer:
-            r = r[: self.dataset.num_relations()]
+        with train_span(ctx, "train.encode"):
+            halo = self._graph.get("halo")
+            if halo is not None:
+                x0 = self.entity_embedder.embed_block(ctx, halo["rows"])
+            else:
+                x0 = self.entity_embedder.embed_all(ctx)
+            r0 = self.relation_embedder.embed_all(ctx)
+            x, r = self.rgnn(x0, r0, self._graph, ctx)
+            if not self.reciprocal_scorer:
+                r = r[: self.dataset.num_relations()]
+        if ctx.train and torch.autograd._profiler_enabled():
+            backward_span((x, r), (x0, r0))
         ctx.cache[cache_key] = (x, r)
         return x, r
 

@@ -44,15 +44,25 @@ layouts are:
 Batch-norm running statistics are model state, read from ``Ctx.state``
 and written to ``Ctx.updates`` under ``f"{name}_bn"``; on the halo route
 they are the sums over the model group of the blocks' real rows.
+
+In training (``ctx.train``) a message-passing layer's forward names its
+two phases for a profile (``train_span``): ``train.encode.messages``
+around each mode's per-edge messages (gathers, composition, the message
+transform, the edge scale) and ``train.encode.aggregate`` around each
+route's reduce by node (``segment_sum``, the dense adjacency's product,
+the attention's edge softmax). The halo route and the R-GCN and W-GCN
+layers open none.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from kge_tpu_torch.models.api import Ctx
 from kge_tpu_torch.models.init import initialize
@@ -190,6 +200,12 @@ class RgnnLayerBase(nn.Module):
             "mean": torch.zeros(self.out_dim, device=self._device),
             "var": torch.ones(self.out_dim, device=self._device),
         }}
+
+
+def train_span(ctx: Ctx, name: str):
+    """A ``record_function`` span ``name`` in training, none otherwise;
+    without a profiler it costs its enter and exit calls."""
+    return record_function(name) if ctx.train else contextlib.nullcontext()
 
 
 def rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -414,6 +430,18 @@ class MessagePassingLayer(RgnnLayerBase):
         """Every relation's messages with its own weight, batched over the
         padded relation buckets: one gather, one einsum/bmm, one
         index_add_."""
+        N = self.num_entities
+        with train_span(ctx, "train.encode.messages"):
+            msg, src = self._per_relation_messages(x, r_full, graph,
+                                                   edge_mask, ctx)
+        with train_span(ctx, "train.encode.aggregate"):
+            return segment_sum(msg.reshape(-1, self.out_dim),
+                               src.reshape(-1), N)
+
+    def _per_relation_messages(self, x, r_full, graph, edge_mask,
+                               ctx: Ctx):
+        """(messages [M, Emax, d_out], aggregation nodes [M, Emax]) over
+        the padded relation buckets."""
         edge_index = graph["edge_index"]
         src_all, nbr_all = edge_index[0], edge_index[1]
         N = self.num_entities
@@ -457,8 +485,7 @@ class MessagePassingLayer(RgnnLayerBase):
                              (graph["rgcn_num_groups_vert"], self.out_dim),
                              x.device, x.dtype)
             msg = msg * drop[groups[pos]] / keep
-        return segment_sum(msg.reshape(M * Emax, self.out_dim),
-                           src.reshape(-1), N)
+        return msg, src
 
     def forward(self, x, r, graph, ctx: Ctx):
         if "halo" in graph:  # the encoder's route (``Rgnn.halo_route``)
@@ -490,15 +517,21 @@ class MessagePassingLayer(RgnnLayerBase):
                 weight = getattr(self, f"w_{mode}_h{head}")
                 dense = graph.get(f"dense_{self.rb_key(mode)}")
                 if dense is not None and self.hoistable and not self.attention:
-                    agg = self._dense_aggregate(dense, x, r_full, src, types,
-                                                scale, weight)
+                    with train_span(ctx, "train.encode.aggregate"):
+                        agg = self._dense_aggregate(dense, x, r_full, src,
+                                                    types, scale, weight)
                 else:
-                    msg = self._edge_messages(x, r_full, nbr, types, scale,
-                                              weight, head, is_loop)
+                    with train_span(ctx, "train.encode.messages"):
+                        msg = self._edge_messages(x, r_full, nbr, types,
+                                                  scale, weight, head,
+                                                  is_loop)
                     if self.attention:
                         per_mode.append((msg, src, mask))
                         continue
-                    agg = msg if is_loop else segment_sum(msg, src, N)
+                    agg = msg
+                    if not is_loop:
+                        with train_span(ctx, "train.encode.aggregate"):
+                            agg = segment_sum(msg, src, N)
                 if not is_loop:
                     agg = ctx.dropout(agg, self.prop_dropout, replicated=True)
                 if self.propagation == "direction":
@@ -506,10 +539,11 @@ class MessagePassingLayer(RgnnLayerBase):
                 per_mode.append(agg)
             if self.attention:
                 # RAGAT: an edge softmax per target node
-                head_outputs.append(self._attention(
-                    per_mode, getattr(self, f"w_att_h{head}"), N,
-                    lambda e: ctx.dropout(e, self.prop_dropout,
-                                          replicated=True)))
+                with train_span(ctx, "train.encode.aggregate"):
+                    head_outputs.append(self._attention(
+                        per_mode, getattr(self, f"w_att_h{head}"), N,
+                        lambda e: ctx.dropout(e, self.prop_dropout,
+                                              replicated=True)))
             else:
                 head_outputs.append(sum(per_mode[1:], per_mode[0]))
         return self._finish(head_outputs, r_full, ctx, self._parameters)

@@ -28,8 +28,12 @@ come back in one transfer when the epoch ends (NaN checks included).
 ``torch.profiler.record_function`` spans (``train.collate``,
 ``train.upload``, ``train.forward``, ``train.backward``,
 ``train.optimizer``, ``train.fetch``) name the phases a profile reads;
-they cost nothing without a profiler. ``tpu.profile_dir`` traces epoch 1
-with ``torch.profiler`` and writes a Chrome trace into that folder.
+they cost nothing without a profiler. An R-GNN encoder adds its own
+(``models/rgnn``): ``train.encode`` inside ``train.forward``, with
+``train.encode.messages`` and ``train.encode.aggregate`` inside it, and,
+while a profiler records, ``train.encode.backward`` on autograd's
+thread. ``tpu.profile_dir`` traces epoch 1 with ``torch.profiler`` and
+writes a Chrome trace into that folder.
 
 Grouped dispatch (``tpu.steps_per_dispatch``, as ``kge_tpu``'s
 ``_run_epoch_inner``): batches of one structure (``signature``) are

@@ -1,0 +1,14 @@
+"""Device milliseconds a training step of the kernels launched inside
+the program's ``train.encode.messages`` span: the R-GNN encoder's
+per-edge messages (gathers, composition, the message transform, the
+edge scale), forward only. None where the program has no such span."""
+
+from __future__ import annotations
+
+SPAN = 'train.encode.messages'
+
+
+def read(trace):
+    if not trace.steps or SPAN not in trace.span_device_s:
+        return None
+    return 1e3 * trace.span_device_s[SPAN] / trace.steps
