@@ -176,14 +176,23 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    10 in a fused evaluation and 0 in a generic one, K1 40 for the native
    dot forms' shared ``kl`` training, K3 20 for TransE-L1 row-sparse;
 17. CompGCN phase, the main path of this slice (run after the eval
-   phase): ``start`` of ``examples/recipes/fb15k237-compgcn.yaml`` as it
+   phase): first the spectral route's kernel ``ccorr_reduce``
+   (``csrc/ccorr_reduce.cu``) against its plain version at FB15k-237's
+   sizes (14,541 nodes, 475 relation rows, 272,115 edges) on a
+   Zipf-skewed graph with a node of 5,000 edges and a relation of 12% of
+   the edges, the forward and the backward's two reductions at Kp 52 and
+   102, within 1e-5 of float64, two calls bit-identical, one launch
+   counted a call, and at Kp 52 each one's time, device and host time,
+   plain version's time and bound; then ``start`` of
+   ``examples/recipes/fb15k237-compgcn.yaml`` as it
    is (one message-passing layer, direction propagation, ccorr, edge
    norm, tanh, dropout 0.3 and 0.1, a linear relation transform,
    reciprocal ConvE at dim 200, KvsAll with bce and label smoothing 0.1,
    batch 128, Adam lr 0.001) on the FB15k-237-size graph, 1 epoch with a
    validation, ``resume`` for 1 more; K1, K2 and K3 never launched (the
-   generic eval route, dense training); the first 5 batches of epoch 1
-   card vs host at dropout 0 (first batch within 1e-5, their avg_loss
+   generic eval route, dense training), ``ccorr_reduce`` 6 times a
+   training step and twice an evaluation batch; the first 5 batches of
+   epoch 1 card vs host at dropout 0 (first batch within 1e-5, their avg_loss
    within 1e-3; a host step runs the encoder over the whole graph); a
    window of 200 steps profiled (ms a step, queries/s, the
    ``train.*`` spans, device busy share, top kernels, peak memory);
@@ -417,6 +426,9 @@ RGNN_ENCODERS = {
         epochs=1, options={"compgcn.encoder.emb_entity_dropout": 0.0}),
 }
 RGNN_STEPS, RGNN_TEST, RGNN_EVAL_BATCH = 3, 2000, 500
+# the spectral route's kernel at FB15k-237's sizes: the nodes, the relation
+# rows (inverse relations and the loop relation), one half's edges
+CCORR_NODES, CCORR_TYPES, CCORR_EDGES = 14541, 2 * 237 + 1, 272115
 #: the launches of a run that takes no kernel's path (the R-GNN paths:
 #: the generic eval route, dense training, no fused loss)
 NO_KERNELS = dict(rank_counts=0, shared_ce_loss=0, adagrad_row_update=0,
@@ -3195,15 +3207,128 @@ def write_recipe_config(path: str, recipe: str, dataset_folder: str,
         yaml.safe_dump(config, f)
 
 
+def skewed_ccorr_graph(rng):
+    """(src sorted, nbr, types) of one half of FB15k-237's edges over its
+    nodes and relation rows, Zipf-skewed, with node 5 the neighbour of
+    5,000 edges and relation 11 on about 12% of them."""
+    N, R, E = CCORR_NODES, CCORR_TYPES, CCORR_EDGES
+    nbr = np.minimum(rng.zipf(1.3, E) - 1, N - 1)
+    src = np.sort(rng.integers(0, N, E))
+    types = np.minimum(rng.zipf(1.5, E) - 1, R - 1)
+    nbr[:5000] = 5
+    types[rng.random(E) < 0.12] = 11
+    return src, nbr, types
+
+
+def ccorr_reduce_check(cr, seed, device) -> dict:
+    """The spectral route's kernel (``csrc/ccorr_reduce.cu``) against its
+    plain version on ``skewed_ccorr_graph``: the forward by aggregation
+    node and the backward's two reductions (by neighbour, by relation),
+    at Kp 52 (ccorr at d = 200) and 102 (ccorr_true), each within 1e-5 of
+    float64 relative to the largest float64 value, two calls
+    bit-identical, one launch counted a call; then, at Kp 52, each
+    reduction's CUDA-event ms, device and host us a call, the plain
+    version's ms, its bound (the bytes read and written once, or the
+    flops) and the rate of its row gathers."""
+    src, nbr, types = skewed_ccorr_graph(np.random.default_rng(seed))
+    N, R, E = CCORR_NODES, CCORR_TYPES, CCORR_EDGES
+    if np.bincount(nbr).max() < 5000 or np.bincount(types).max() < E // 10:
+        fail("the skewed ccorr graph lacks its hub or its big relation")
+    orders = {name: order.to(device) for name, order in
+              cr.build_orders(src, nbr, types, N, R).items()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = torch.rand(E, device=device, generator=gen)
+    out, worst = {}, 0.0
+    for kp in (52, 102):
+        xh, grad = (torch.randn((N, kp, 2), device=device, generator=gen)
+                    for _ in range(2))
+        rh = torch.randn((R, kp, 2), device=device, generator=gen)
+        for name, a, b, conj in (("src", xh, rh, True),
+                                 ("nbr", grad, rh, True),
+                                 ("type", grad, xh, False)):
+            order = orders[name]
+            label = f"ccorr_reduce {name} order (Kp={kp})"
+            before = cr.ccorr_reduce.launches
+            got = cr.ccorr_reduce(a, b, order, scale, conj)
+            again = cr.ccorr_reduce(a, b, order, scale, conj)
+            torch.cuda.synchronize()
+            if cr.ccorr_reduce.launches != before + 2:
+                fail(f"{label}: {cr.ccorr_reduce.launches - before} launches "
+                     "counted for 2 calls")
+            if not torch.equal(got, again):
+                fail(f"{label}: two calls differ")
+            want = cr.ccorr_reduce_reference(a.double(), b.double(), order,
+                                             scale.double(), conj)
+            err = ((got.double() - want).abs().max()
+                   / want.abs().max()).item()
+            worst = max(worst, err)
+            print(f"{label}: relative error against float64 {err}",
+                  flush=True)
+            if err > 1e-5:
+                fail(f"{label}: relative error {err} against float64")
+            del want, again, got
+            if kp != 52:
+                continue
+
+            def kernel():
+                cr.ccorr_reduce(a, b, order, scale, conj)
+
+            ms = cuda_ms(kernel, reps=100)
+            plain_ms = cuda_ms(lambda: cr.ccorr_reduce_reference(
+                a, b, order, scale, conj), reps=10)
+            prof = call_profile(label, kernel, None)
+            by_name = prof["by_name"]
+            heavy = order.heavy_rows.shape[0]
+            passes = [sum(n for k, (_, n) in by_name.items()
+                          if part in k and ("heavy" in k) == (part[0] == "h"))
+                      for part in ("piece_sums", "row_sums", "heavy_row_sums")]
+            if passes != [1, 1, int(heavy > 0)]:
+                fail(f"{label}: {passes} launches of its passes a call "
+                     f"({heavy} heavy rows)")
+            pieces = order.piece_begin.shape[0] - 1
+            moved = 4.0 * (a.numel() + b.numel() + order.rows * kp * 2
+                           + E * (3 if order.edge is None else 4)
+                           + pieces + 1 + order.rows + 1)
+            # a complex product (6) and its scaled sum (4) a bin an edge
+            flops = 10.0 * E * kp
+            bound_ms = max(moved / PEAK_BYTES_PER_S,
+                           flops / PEAK_FP32_FLOPS) * 1e3
+            gathered = E * 2 * kp * 2 * 4.0
+            numbers = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", kernel_us=prof["kernel_us"],
+                           host_us=prof["host_us"], pieces=pieces,
+                           heavy_rows=heavy,
+                           gathered_mb=gathered / 1e6,
+                           gather_tb_per_s=gathered / (
+                               prof["kernel_us"] * 1e-6) / 1e12)
+            print(f"{label}: " + json.dumps(numbers), flush=True)
+            out[name] = numbers
+        del xh, grad, rh
+    torch.cuda.empty_cache()
+    return dict(out, max_rel_err=worst)
+
+
 def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
     """The slice's main path: ``start`` of CompGCN's FB15k-237 recipe as it
     is (one message-passing layer over the whole graph, ccorr, reciprocal
     ConvE, KvsAll with bce, batch 128, Adam lr 0.001) on the FB15k-237-size
-    graph, 1 epoch and a validation, ``resume`` for 1 more; no kernel
-    launched (the generic eval route, dense training); the first
+    graph, 1 epoch and a validation, ``resume`` for 1 more; of the
+    kernels only the spectral route's ``ccorr_reduce`` (checked first
+    against its plain version, ``ccorr_reduce_check``): 6 launches a
+    training step and 2 an evaluation batch; the first
     COMPGCN_HOST_BATCHES batches of epoch 1 card vs host at dropout 0; a
     window of PROFILE_STEPS steps profiled."""
     from kge_tpu_torch import cli
+    from kge_tpu_torch.ops import ccorr_reduce as cr
+
+    check = ccorr_reduce_check(cr, seed, torch.device("cuda:0"))
+    valid_batches = math.ceil(FB15K237["splits"]["valid"] / VALID_BATCH)
+
+    def expect_spectral(label, launched, epochs):
+        want = 6 * sum(e["batches"] for e in epochs) + 2 * valid_batches
+        if launched["ccorr_reduce"] != want:
+            fail(f"{label} launched ccorr_reduce {launched['ccorr_reduce']} "
+                 f"times, expected {want}")
 
     config_file = os.path.join(scratch, "compgcn.yaml")
     write_recipe_config(config_file, COMPGCN_RECIPE, dataset_folder, seed, {
@@ -3218,6 +3343,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
     seconds = time.perf_counter() - t0
     start_counts = counts(kernels)
     epochs = check_start("compgcn", run, start_counts, NO_KERNELS, 1)
+    expect_spectral("the CompGCN start", start_counts, epochs)
     print(f"train compgcn start seconds_cli {seconds}", flush=True)
 
     reset_counts(kernels)
@@ -3239,6 +3365,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
             0.0 < v["mean_reciprocal_rank_filtered"] <= 1.0 for v in valids):
         fail("CompGCN: a validation is missing or out of range")
     expect_counts("the resumed CompGCN epoch", resume_counts, NO_KERNELS)
+    expect_spectral("the resumed CompGCN epoch", resume_counts, [resumed])
 
     # a host step runs the encoder over the whole graph: the first batches
     compared = card_vs_host("compgcn", run, scratch,
@@ -3253,6 +3380,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
              f"{compared}")
     profiled_window("compgcn", run, scratch, 3)
     return dict(start=start_counts, resume=resume_counts,
+                ccorr_reduce=check,
                 losses=[e["avg_loss"] for e in epochs] + [
                     resumed["avg_loss"]],
                 queries_per_s=[e["size"] / e["epoch_time"] for e in epochs]
@@ -4817,6 +4945,7 @@ def main():
     if not os.path.isdir(os.path.join(REPO, "kge_tpu_torch")):
         fail(f"kge_tpu_torch not found next to {__file__}")
     sys.path.insert(0, REPO)
+    from kge_tpu_torch.ops import ccorr_reduce as cr
     from kge_tpu_torch.ops import native
     from kge_tpu_torch.ops import negsamp_loss as nl
     from kge_tpu_torch.ops import rank_count as rc
@@ -4848,7 +4977,7 @@ def main():
                 if "registers" in line or "spill" in line), flush=True)
 
     kernels = (rc.rank_counts, nl.shared_ce_loss, ru.adagrad_row_update,
-               ru.sgd_row_update)
+               ru.sgd_row_update, cr.ccorr_reduce)
     seconds = {}
     results = {}
 
@@ -4992,7 +5121,14 @@ def main():
         launches=launches, **k3[optimizer],
         launches_by_phase=phases(f"{optimizer}_row_update"),
     ) for optimizer, line, launches in (
-        ("adagrad", 60, w5m["launches"]), ("sgd", 78, sgd["launches"]))]}),
+        ("adagrad", 60, w5m["launches"]), ("sgd", 78, sgd["launches"]))] + [
+        dict(name="ccorr_reduce", route="cuda",
+             source="kge_tpu_torch/csrc/ccorr_reduce.cu",
+             replaces=None, launches=compgcn["start"]["ccorr_reduce"],
+             max_rel_err=compgcn["ccorr_reduce"]["max_rel_err"],
+             **{order: compgcn["ccorr_reduce"][order]
+                for order in ("src", "nbr", "type")},
+             launches_by_phase=phases("ccorr_reduce"))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ kge/model/kge_model.py:774-1066).
 The encoder runs the GNN over the whole training graph, and the decoder
 scorer reads the contextualized embeddings. The graph is built on the
 host (``build_graph_buffers``, rebuilt on per-epoch graph sampling) and
-kept on the model's device. ``use_stale_embeddings`` (the reference's
+kept on the model's device; for layers on the spectral route
+(``MessagePassingLayer.spectral``) it holds the three orders of each of
+their edge sets that the ccorr reduce reads (``spectral_orders``,
+int32). ``use_stale_embeddings`` (the reference's
 cached forward with retained graphs, rgnn_encoder.py:1241-1267) is a
 memo in ``Ctx.cache``: the encoder runs once a training step (or
 subbatch) and once an evaluation batch, every score call of it reads
@@ -62,6 +65,7 @@ from kge_tpu_torch.models.rgnn.layers import (
     WeightedGCNLayer,
     train_span,
 )
+from kge_tpu_torch.ops.ccorr_reduce import build_orders
 from kge_tpu_torch.ops.segment import degree_norm
 from kge_tpu_torch.parallel import distributed as dist
 from kge_tpu_torch.parallel import mesh as mesh_lib
@@ -85,7 +89,8 @@ _ACTIVATIONS = {
 
 def build_graph_buffers(triples: np.ndarray, num_relations: int,
                         per_relation: bool,
-                        num_entities: Optional[int] = None
+                        num_entities: Optional[int] = None,
+                        spectral_sets: Tuple[str, ...] = ()
                         ) -> Dict[str, Any]:
     """Edge buffers (the inverse edges with offset relation ids) and, for
     per-relation layers, the padded relation buckets and the (relation,
@@ -95,7 +100,10 @@ def build_graph_buffers(triples: np.ndarray, num_relations: int,
     ``edge_orig`` maps each edge position to its triple, so edge dropout
     keeps a triple's two edges together. ``halves_sorted`` marks the sort
     (its presence is what ``kge_tpu`` reads); the sort is the g++ host
-    op's stable counting sort (``native.counting_argsort``)."""
+    op's stable counting sort (``native.counting_argsort``).
+    ``spectral_sets`` names the edge sets (``mode_edge_set``) whose
+    orders the spectral route reads (``graph["spectral"][key]``,
+    ``spectral_orders``)."""
     fwd = triples[:, [0, 2]].T.astype(np.int32)
     buckets = num_entities if num_entities is not None else (
         int(fwd.max()) + 1 if fwd.size else 1)
@@ -117,6 +125,9 @@ def build_graph_buffers(triples: np.ndarray, num_relations: int,
         "edge_orig": np.concatenate([order_fwd, order_inv]).astype(np.int32),
         "halves_sorted": np.zeros(0, np.int32),
     }
+    if spectral_sets:
+        graph["spectral"] = spectral_orders(graph, spectral_sets, buckets,
+                                            num_relations)
     E = edge_index.shape[1]
     if per_relation:
         rels, counts = np.unique(edge_type, return_counts=True)
@@ -167,6 +178,27 @@ def mode_edge_set(edge_index: np.ndarray, key: str, num_nodes: int):
     loop = np.arange(num_nodes, dtype=edge_index.dtype)
     return (np.concatenate([edge_index[0], loop]),
             np.concatenate([edge_index[1], loop]))
+
+
+def spectral_orders(graph: Dict[str, Any], keys: Tuple[str, ...],
+                    num_nodes: int, num_relations: int) -> Dict[str, Any]:
+    """The spectral route's three orders (``ccorr_reduce.build_orders``)
+    of each edge set in ``keys``, its relations as a layer's
+    ``_mode_edges`` gives them: the self-loops' is the loop relation
+    ``2 * num_relations``, the last row of the layer's relation table."""
+    edge_type = graph["edge_type"]
+    E = edge_type.shape[0]
+    out = {}
+    for key in keys:
+        src, nbr = mode_edge_set(graph["edge_index"], key, num_nodes)
+        types = {"in": edge_type[:E // 2], "out": edge_type[E // 2:],
+                 "single": edge_type}.get(key)
+        if types is None:  # single_with_loops
+            types = np.concatenate([edge_type, np.full(
+                num_nodes, 2 * num_relations, edge_type.dtype)])
+        out[key] = build_orders(src, nbr, types, num_nodes,
+                                2 * num_relations + 1)
+    return out
 
 
 def build_halo_layout(graph: Dict[str, Any], keys: Tuple[str, ...], P: int,
@@ -337,6 +369,17 @@ class Rgnn(KgeBase):
         )
 
     @property
+    def spectral_sets(self) -> Tuple[str, ...]:
+        """The edge sets of the modes of the layers that take the spectral
+        route (``MessagePassingLayer.spectral``): their orders are built
+        with the graph."""
+        keys = set()
+        for l in self.layers:
+            if isinstance(l, MessagePassingLayer) and l.spectral:
+                keys.update(k for k in map(l.rb_key, l.modes) if k)
+        return tuple(sorted(keys))
+
+    @property
     def row_block_modes(self) -> Tuple[str, ...]:
         """``kge_tpu``'s names of the edge sets its message-passing
         layers aggregate over in row blocks (none with
@@ -490,13 +533,19 @@ class RgnnEncoder(KgeBase):
             np.asarray(triples), self.dataset.num_relations(),
             self.rgnn.needs_rel_buckets,
             num_entities=self.dataset.num_entities(),
+            spectral_sets=self.rgnn.spectral_sets,
         )
         # int64 index tensors: every indexing op takes them as they are
         self._graph = {
             k: v if isinstance(v, int) else torch.as_tensor(
                 v.astype(np.int64), device=self.device)
-            for k, v in self._graph_np.items()
+            for k, v in self._graph_np.items() if k != "spectral"
         }
+        if "spectral" in self._graph_np:  # the kernel's int32 orders
+            self._graph["spectral"] = {
+                key: {name: order.to(self.device)
+                      for name, order in orders.items()}
+                for key, orders in self._graph_np["spectral"].items()}
         self._maybe_build_halo()
         self._maybe_build_dense()
 

@@ -7,9 +7,26 @@ names of ``kge_tpu``'s params dict (``w_in_h0``, ``loop_rel``, ...):
 - ``MessagePassingLayer`` (CompGCN/RAGAT): gather neighbor and relation
   embeddings, compose, transform with a per-mode weight, and
   ``segment_sum`` back to the nodes. Edge and self-edge dropout are 0/1
-  edge masks folded into the messages. Linear compositions without a
-  message weight transform the [N, d] table once and gather after
-  (``hoistable``). Per-relation weights (basis/block decompositions) run
+  edge masks folded into the messages. Two routes move work off the
+  edges, each where the algebra allows it:
+
+  - ``hoistable``: linear compositions (``neighbor``, ``sub``) without a
+    message weight transform the [N, d] table once and gather after;
+  - ``spectral``: ``ccorr`` and ``ccorr_true`` without a message weight,
+    attention or learned relation weight, under ``single``,
+    ``single_with_self_edge_weight`` or ``direction`` propagation, on
+    float32 tables. ccorr is a product of spectra bin by bin and the
+    inverse FFT, the mode weight and the edge scale are linear, so the
+    FFTs run once on the node and relation tables (the first mode's
+    ``train.encode.messages``), each edge mode sums its products by node
+    in the spectral domain (``ops/ccorr_reduce.py``: the kernel
+    ``csrc/ccorr_reduce.cu`` on a card, over the orders the encoder
+    builds with the graph, ``graph["spectral"]``), and the inverse FFT
+    and the weight run once on the node sums (both in
+    ``train.encode.aggregate``); the self-loop mode is node work on the
+    same spectra. The same sums as the per-edge route in another order.
+
+  Per-relation weights (basis/block decompositions) run
   as one batched gather, one ``einsum``/``bmm`` over the padded relation
   buckets and one ``index_add_`` (``kge_tpu`` scans the buckets one by
   one: the same sum in another order).
@@ -48,10 +65,11 @@ they are the sums over the model group of the blocks' real rows.
 In training (``ctx.train``) a message-passing layer's forward names its
 two phases for a profile (``train_span``): ``train.encode.messages``
 around each mode's per-edge messages (gathers, composition, the message
-transform, the edge scale) and ``train.encode.aggregate`` around each
-route's reduce by node (``segment_sum``, the dense adjacency's product,
-the attention's edge softmax). The halo route and the R-GCN and W-GCN
-layers open none.
+transform, the edge scale; on the spectral route the tables' spectra and
+the self-loop mode) and ``train.encode.aggregate`` around each route's
+reduce by node (``segment_sum``, the dense adjacency's product, the
+attention's edge softmax, the spectral reduce with its inverse FFT and
+weight). The halo route and the R-GCN and W-GCN layers open none.
 """
 
 from __future__ import annotations
@@ -68,6 +86,13 @@ from kge_tpu_torch.models.api import Ctx
 from kge_tpu_torch.models.init import initialize
 from kge_tpu_torch.parallel.collectives import (
     data_sum, enter_blocks, halo_exchange,
+)
+from kge_tpu_torch.ops.ccorr_reduce import (
+    CcorrReduce,
+    from_spectra,
+    loop_spectra,
+    spectra,
+    spectrum_bins,
 )
 from kge_tpu_torch.ops.segment import (
     composition_fn,
@@ -294,6 +319,20 @@ class MessagePassingLayer(RgnnLayerBase):
             raise NotImplementedError(
                 f"propagation type {self.propagation} not supported"
             )
+        # ccorr is a product of spectra bin by bin, and the inverse FFT,
+        # the mode weight and the edge scale are linear: the FFTs run once
+        # on the [N, d] and [R, d] tables, the per-edge product is summed
+        # by node in the spectral domain, and the inverse FFT and the
+        # matmul run once on the [N, K] sums (float32 tables only)
+        self.spectral = (
+            composition in ("ccorr", "ccorr_true")
+            and not self.attention
+            and not self.learned_relation_weight
+            and self.propagation in ("single", "single_with_self_edge_weight",
+                                     "direction")
+        )
+        if self.spectral:
+            self.spectrum_bins = spectrum_bins(composition, in_dim)
         self._init_params()
 
     # ------------------------------------------------------------------ params
@@ -498,6 +537,8 @@ class MessagePassingLayer(RgnnLayerBase):
         edge_mask, self_mask = self._edge_masks(ctx, E, x,
                                                 graph.get("edge_orig"))
         num_modes = len(self.modes)
+        spectral = self.spectral and x.dtype == r_full.dtype == torch.float32
+        tables = None  # the node and relation spectra, once a call
         head_outputs = []
         for head in range(self.num_heads):
             if self.propagation.startswith("per_relation"):
@@ -520,6 +561,20 @@ class MessagePassingLayer(RgnnLayerBase):
                     with train_span(ctx, "train.encode.aggregate"):
                         agg = self._dense_aggregate(dense, x, r_full, src,
                                                     types, scale, weight)
+                elif spectral:
+                    with train_span(ctx, "train.encode.messages"):
+                        if tables is None:
+                            tables = (spectra(x, self.spectrum_bins),
+                                      spectra(r_full, self.spectrum_bins))
+                        if is_loop:
+                            agg = self._from_spectra(
+                                loop_spectra(tables[0], tables[1][-1], scale),
+                                weight)
+                    if not is_loop:
+                        with train_span(ctx, "train.encode.aggregate"):
+                            agg = self._from_spectra(CcorrReduce.apply(
+                                *tables, scale,
+                                graph["spectral"][self.rb_key(mode)]), weight)
                 else:
                     with train_span(ctx, "train.encode.messages"):
                         msg = self._edge_messages(x, r_full, nbr, types,
@@ -547,6 +602,11 @@ class MessagePassingLayer(RgnnLayerBase):
             else:
                 head_outputs.append(sum(per_mode[1:], per_mode[0]))
         return self._finish(head_outputs, r_full, ctx, self._parameters)
+
+    def _from_spectra(self, sums, weight) -> torch.Tensor:
+        """The spectral route's messages summed by node: the inverse FFT
+        of the spectral sums [N, Kp, 2], then the mode weight."""
+        return from_spectra(sums, self.spectrum_bins, self.in_dim) @ weight
 
     def _attention(self, per_mode, att_w, num_nodes, dropout):
         """The edge softmax over the modes' (messages, target nodes,

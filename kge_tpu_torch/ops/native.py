@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("rank_count", "negsamp_loss", "row_update")
+KERNELS = ("rank_count", "negsamp_loss", "row_update", "ccorr_reduce")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

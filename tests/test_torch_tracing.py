@@ -2,7 +2,8 @@
 the encoder is ``train.encode`` inside ``train.forward``, with
 ``train.encode.messages`` and ``train.encode.aggregate`` inside it, and
 its backward is one ``train.encode.backward`` a step, which holds the
-gathers' ``index_add_`` and none of ConvE's backward. The spans change no
+spectral reduce's backward (``CcorrReduceBackward``) and the FFTs' and
+none of ConvE's backward. The spans change no
 number: two steps of CompGCN with a reciprocal ConvE decoder by KvsAll on
 data/toy, every dropout on, give the same losses, gradients, Adam state,
 model state and weights bit for bit with the profiler off and on. The
@@ -188,22 +189,31 @@ def test_compgcn_conve_spans_change_no_number(tmp_path):
     for name in ("train.encode.messages", "train.encode.aggregate"):
         for e in by_name[name]:
             assert "train.encode" in ancestors(e), name
+    # ccorr takes the spectral route: the node and relation tables' FFTs
+    # once a step, in the first mode's messages; each edge mode's reduce
+    # by node in the spectral domain (the kernel's plain version on the
+    # host, its index_add_), then the inverse FFT and the mode weight
+    messages = [d.name for e in by_name["train.encode.messages"]
+                for d in descendants(e)]
+    assert messages.count("aten::_fft_r2c") == 2 * STEPS
     aggregates = {d.name for e in by_name["train.encode.aggregate"]
                   for d in descendants(e)}
-    assert "aten::index_add" in aggregates
+    assert {"CcorrReduce", "aten::index_add_", "aten::_fft_c2r",
+            "aten::mm"} <= aggregates, aggregates
     # the backward: one a step, closed inside the step's train.backward,
-    # the gathers' index_add_ in it and none of ConvE's backward
+    # the reduce's backward (the same reduce by neighbour and by relation)
+    # and the FFTs' in it, no per-edge gather's and none of ConvE's
     backward = by_name["train.encode.backward"]
     assert len(backward) == STEPS
     for e in backward:
         assert e.time_range.end > e.time_range.start
         assert "train.backward" in ancestors(e)
         inside = {d.name for d in descendants(e)}
+        assert "CcorrReduceBackward" in inside, inside
         assert any(n.startswith("aten::index_add") for n in inside), inside
         assert not any("ConvolutionBackward0" in n for n in inside), inside
-        assert any("IndexSelectBackward0" in n for n in inside), inside
-        assert any("FftR2CBackward0" in n or "FftC2RBackward0" in n
-                   for n in inside), inside
+        assert not any("IndexSelectBackward0" in n for n in inside), inside
+        assert {"FftR2CBackward0", "FftC2RBackward0"} <= inside, inside
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
