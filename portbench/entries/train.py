@@ -20,7 +20,8 @@ sampling or order).
 
 Program names this relies on: ``TrainingJob.create``, ``_prepare``,
 ``_is_prepared``, ``run_epoch``, ``epoch``, ``_generate_batches``,
-``_epoch_device_payload``, ``_step``, ``opt_state``, ``model``,
+``_epoch_device_payload``, ``_step``, ``_dispatch_group``,
+``graph_replays``, ``_dropout_gen``, ``opt_state``, ``model``,
 ``models.api.Ctx.dropout`` and ``Ctx.generator``, and
 ``KgeRgnnModel._encode`` (wrapped in a ``portbench.encode`` span in traced
 runs)."""
@@ -49,13 +50,42 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never on a
+    build or a machine without CUDA)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def philox_offset(state: torch.Tensor) -> int:
+    """The Philox offset of a CUDA generator's state (its last 8 bytes;
+    the 8 before them hold the seed)."""
+    return int(state[-8:].view(torch.int64)[0])
+
+
+def at_offset(state: torch.Tensor, offset: int) -> torch.Tensor:
+    """``state`` with its Philox offset set to ``offset``."""
+    out = state.clone()
+    out[-8:] = torch.tensor([offset], dtype=torch.int64).view(torch.uint8)
+    return out
+
+
 class Recorder:
-    """Wraps the job's feed and steps, and ``Ctx.dropout``, for the check
-    steps: the first ``n`` host batches of the epoch, at each dropout site
-    of each step the state of the generator the program draws its mask
-    from and the shape it draws, each step's loss, the optimizer's state
-    and the leaves after the first step. It takes no mask from the
-    program: the reference draws its own."""
+    """Wraps the job's feed, steps and groups of steps, and
+    ``Ctx.dropout``, for the check steps: the first ``n`` host batches of
+    the epoch, at each dropout site of each step the state of the
+    generator the program draws its mask from and the shape it draws,
+    each step's loss, the optimizer's state and the leaves after the
+    first step. It takes no mask from the program: the reference draws
+    its own.
+
+    A group the program replays as a CUDA graph calls no step: its steps'
+    losses are the rows of the ``[k, n]`` values it returns, and their
+    draws are the eager group of the same key's, each moved by the
+    Philox offset the generator held when the replay began (a replay
+    draws what eager steps would: the generator is registered with the
+    graph, which a capture does not advance). A capture runs nothing, so
+    the wrappers pass it straight through and record nothing."""
 
     def __init__(self, job, n: int):
         self.job, self.n = job, n
@@ -65,12 +95,16 @@ class Recorder:
         self.state1 = None
         self.params1 = None
         self._step_draws = None
+        #: by group key, the generator's state at the start of the last
+        #: eager group of that key and the draws of its steps
+        self._eager: Dict = {}
 
     def __enter__(self):
         from kge_tpu_torch.models.api import Ctx
 
         job, rec = self.job, self
         gen, step = job._generate_batches, job._step
+        dispatch = job._dispatch_group
 
         def generate(epoch):
             for batch in itertools.islice(gen(epoch), rec.n):
@@ -78,6 +112,8 @@ class Recorder:
                 yield batch
 
         def stepped(batch, lrs, correction=None):
+            if capturing():
+                return step(batch, lrs, correction)
             rec._step_draws = []
             out = step(batch, lrs, correction)
             rec.draws.append(rec._step_draws)
@@ -91,25 +127,56 @@ class Recorder:
                                for n, p in job.model.named_parameters()}
             return out
 
+        def dispatched(key, host, run):
+            if capturing():
+                return dispatch(key, host, run)
+            start = job._dropout_gen.get_state()
+            first, replays = len(rec.draws), job.graph_replays
+            names, values = dispatch(key, host, run)
+            if job.graph_replays == replays:
+                rec._eager[key] = (start, rec.draws[first:])
+            else:
+                rec._replayed(key, start, names, values)
+            return names, values
+
         self._dropout = Ctx.dropout
 
         def dropout(ctx, x, rate, replicated=False):
             if (rec._step_draws is not None and ctx.train and rate > 0
-                    and ctx.generator is not None):
+                    and ctx.generator is not None and not capturing()):
                 rec._step_draws.append(dict(
                     state=ctx.generator.get_state(), shape=tuple(x.shape),
                     dtype=x.dtype, device=x.device))
             return rec._dropout(ctx, x, rate, replicated)
 
         job._generate_batches, job._step = generate, stepped
+        job._dispatch_group = dispatched
         Ctx.dropout = dropout
         return self
+
+    def _replayed(self, key, start: torch.Tensor, names: List[str],
+                  values: torch.Tensor):
+        """Records of a replayed group's steps: each loss from its row of
+        ``values``, each draw the same key's eager draw at its offset from
+        that group's start, moved to this group's ``start``."""
+        if key not in self._eager:
+            raise RuntimeError(f"group {key!r} was replayed before it ran "
+                               "eagerly under the recorder")
+        eager_start, eager_draws = self._eager[key]
+        base, now = philox_offset(eager_start), philox_offset(start)
+        loss = values[:, names.index("avg_loss")]
+        for i, draws in enumerate(eager_draws):
+            self.losses.append(loss[i])
+            self.draws.append([
+                dict(d, state=at_offset(
+                    start, now + philox_offset(d["state"]) - base))
+                for d in draws])
 
     def __exit__(self, *exc):
         from kge_tpu_torch.models.api import Ctx
 
         Ctx.dropout = self._dropout
-        for name in ("_generate_batches", "_step"):
+        for name in ("_generate_batches", "_step", "_dispatch_group"):
             del self.job.__dict__[name]
         self.losses = [float(x) for x in self.losses[:self.n]]
         self.draws = self.draws[:self.n]

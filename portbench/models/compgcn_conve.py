@@ -270,14 +270,26 @@ def fft_flops(n: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
+def ccorr_bins(d: int) -> int:
+    """The spectrum bins ``ccorr`` keeps of a width ``d``: the lower half
+    of ``rfft``'s ``d // 2 + 1``, plus one (``Model.ccorr``)."""
+    return (d // 2 + 1) // 2 + 1
+
+
 def encoder_flops(N: int, R: int, edges: int, d_in: int, d_out: int) -> float:
-    """One forward of the layer: per edge and per self-loop a ccorr (two
-    real FFTs forward, one inverse, a complex product over d/2 + 1 bins)
-    and a [d_in, d_out] product; the relation transform; the sums, norm
-    and activation (a few operations per output entry)."""
-    rows = edges + N
-    ccorr = 3 * fft_flops(d_in) + 6 * (d_in // 2 + 1)
-    return (rows * (ccorr + 2 * d_in * d_out + 2 * d_out)
+    """One forward of the layer, as the least work its math needs,
+    whichever route the program takes: the real FFTs of the node table
+    and of the 2R + 1 relation rows (with the self-loop's); per edge and
+    per self-loop the complex product over the bins ``ccorr`` keeps and
+    its addition into the node's sum (8 operations a bin; each edge's
+    norm is a product of a node factor on either side, so it needs no
+    operation of the edge's own); per node and mode (in, out, self-loop)
+    one inverse FFT and a [d_in, d_out] product; the relation transform;
+    the sums, norm and activation (a few operations per output entry)."""
+    fft = fft_flops(d_in)
+    return ((N + 2 * R + 1) * fft
+            + (edges + N) * 8 * ccorr_bins(d_in)
+            + 3 * N * (fft + 2 * d_in * d_out)
             + 2 * (2 * R + 1) * d_in * d_out + 10 * N * d_out)
 
 

@@ -58,10 +58,18 @@ def test_benchmark_file_shape():
 
 def test_fft_and_encoder_counts_by_hand():
     assert compgcn_conve.fft_flops(8) == pytest.approx(2.5 * 8 * 3)
-    # 3 nodes, 2 relations, 4 edges, d_in 4 -> d_out 5
-    ccorr = 3 * 2.5 * 4 * 2 + 6 * 3
-    per_row = ccorr + 2 * 4 * 5 + 2 * 5
-    want = 7 * per_row + 2 * 5 * 4 * 5 + 10 * 3 * 5
+    # 3 nodes, 2 relations (5 rows with the inverses and the self-loop's),
+    # 4 edges, d_in 4 -> d_out 5: rfft gives 3 bins, ccorr keeps 2
+    assert compgcn_conve.ccorr_bins(4) == 2
+    assert compgcn_conve.ccorr_bins(200) == 51
+    fft = 2.5 * 4 * 2
+    tables = (3 + 5) * fft
+    products = (4 + 3) * 8 * 2
+    nodes = 3 * 3 * (fft + 2 * 4 * 5)
+    relations = 2 * 5 * 4 * 5
+    sums = 10 * 3 * 5
+    want = tables + products + nodes + relations + sums
+    assert want == 1162
     assert compgcn_conve.encoder_flops(3, 2, 4, 4, 5) == pytest.approx(want)
 
 
@@ -76,10 +84,21 @@ def test_conve_counts_by_hand():
 def test_train_step_counts_by_hand():
     config = {"graph": {"entities": 3, "relations": 2,
                         "splits": {"train": 2}}}
-    forward = (compgcn_conve.encoder_flops(3, 2, 4, 4, 5)
-               + compgcn_conve.conve_flops(5, 3, 2, 4, 32, 4))
+    # the encoder as above (4 edges); ConvE at B 5, h 2, w 4: 2x2 maps of
+    # 32 channels, d 4, scores against 3 entities
+    encoder = 1162
+    conve = 2 * 5 * 32 * 2 * 2 * 9 + 2 * 5 * 32 * 2 * 2 * 4 + 2 * 5 * 4 * 3
     assert compgcn_conve.train_step_flops(
-        config, 5, d=4, height=2, width=4) == pytest.approx(3 * forward)
+        config, 5, d=4, height=2, width=4) == pytest.approx(
+            3 * (encoder + conve))
+
+
+def test_cell_step_count_is_the_layers_least_work():
+    """At FB15k-237's sizes a step counts 15.98 GFLOP, a tenth of the
+    per-edge count (159.8) that a route of per-edge transforms would do."""
+    cell = Cell(BENCH, "compgcn-fb15k237.train")
+    flops = compgcn_conve.train_step_flops(cell.config, 128)
+    assert flops == pytest.approx(15.978e9, rel=1e-4)
 
 
 def test_readers_on_a_made_up_trace():
