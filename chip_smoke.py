@@ -189,9 +189,12 @@ all). Phases, each of which fails the run (non-zero exit) when it fails
    norm, tanh, dropout 0.3 and 0.1, a linear relation transform,
    reciprocal ConvE at dim 200, KvsAll with bce and label smoothing 0.1,
    batch 128, Adam lr 0.001) on the FB15k-237-size graph, 1 epoch with a
-   validation, ``resume`` for 1 more; K1, K2 and K3 never launched (the
-   generic eval route, dense training), ``ccorr_reduce`` 6 times a
-   training step and twice an evaluation batch; the first 5 batches of
+   validation, ``resume`` for 1 more; its groups of 4 steps captured as
+   CUDA graphs (the log's "Capturing groups of 4 steps as CUDA graphs."
+   and each epoch's replayed batches, at least 90% of the epoch); K1, K2
+   and K3 never launched (the generic eval route, dense training),
+   ``ccorr_reduce`` 6 times a training step, counted through the
+   replays, and twice an evaluation batch; the first 5 batches of
    epoch 1 card vs host at dropout 0 (first batch within 1e-5, their avg_loss
    within 1e-3; a host step runs the encoder over the whole graph); a
    window of 200 steps profiled (ms a step, queries/s, the
@@ -3308,14 +3311,41 @@ def ccorr_reduce_check(cr, seed, device) -> dict:
     return dict(out, max_rel_err=worst)
 
 
+def replayed_batches(label: str, run: str, epochs) -> list:
+    """Each epoch's batches replayed as CUDA graphs, from the log of a
+    captured run: at least 90% of the epoch's batches (the first group
+    of each key runs eagerly, its capture's warm-up)."""
+    with open(os.path.join(run, "kge.log")) as f:
+        log = f.read()
+    if "Capturing groups of 4 steps as CUDA graphs." not in log:
+        fail(f"{label}: the groups of steps were not captured")
+    out = []
+    for e in epochs:
+        line = f"Epoch {e['epoch']}: "
+        found = [text for text in log.splitlines() if line in text
+                 and "batches replayed as CUDA graphs" in text]
+        if not found:
+            fail(f"{label}: no replayed batches logged for epoch "
+                 f"{e['epoch']}")
+        replayed = int(found[-1].split(line)[1].split()[0])
+        if replayed < 0.9 * e["batches"]:
+            fail(f"{label}: {replayed} of {e['batches']} batches of epoch "
+                 f"{e['epoch']} replayed")
+        out.append(replayed)
+    print(f"train {label} replayed batches: {out}", flush=True)
+    return out
+
+
 def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
     """The slice's main path: ``start`` of CompGCN's FB15k-237 recipe as it
     is (one message-passing layer over the whole graph, ccorr, reciprocal
     ConvE, KvsAll with bce, batch 128, Adam lr 0.001) on the FB15k-237-size
-    graph, 1 epoch and a validation, ``resume`` for 1 more; of the
+    graph, 1 epoch and a validation, ``resume`` for 1 more, each epoch's
+    groups of steps captured and replayed as CUDA graphs; of the
     kernels only the spectral route's ``ccorr_reduce`` (checked first
     against its plain version, ``ccorr_reduce_check``): 6 launches a
-    training step and 2 an evaluation batch; the first
+    training step, counted through the replays, and 2 an evaluation
+    batch; the first
     COMPGCN_HOST_BATCHES batches of epoch 1 card vs host at dropout 0; a
     window of PROFILE_STEPS steps profiled."""
     from kge_tpu_torch import cli
@@ -3344,6 +3374,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
     start_counts = counts(kernels)
     epochs = check_start("compgcn", run, start_counts, NO_KERNELS, 1)
     expect_spectral("the CompGCN start", start_counts, epochs)
+    replayed = replayed_batches("compgcn", run, epochs)
     print(f"train compgcn start seconds_cli {seconds}", flush=True)
 
     reset_counts(kernels)
@@ -3366,6 +3397,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
         fail("CompGCN: a validation is missing or out of range")
     expect_counts("the resumed CompGCN epoch", resume_counts, NO_KERNELS)
     expect_spectral("the resumed CompGCN epoch", resume_counts, [resumed])
+    replayed += replayed_batches("compgcn_resume", run, [resumed])
 
     # a host step runs the encoder over the whole graph: the first batches
     compared = card_vs_host("compgcn", run, scratch,
@@ -3380,7 +3412,7 @@ def compgcn_phase(kernels, seed, scratch, dataset_folder) -> dict:
              f"{compared}")
     profiled_window("compgcn", run, scratch, 3)
     return dict(start=start_counts, resume=resume_counts,
-                ccorr_reduce=check,
+                ccorr_reduce=check, replayed_batches=replayed,
                 losses=[e["avg_loss"] for e in epochs] + [
                     resumed["avg_loss"]],
                 queries_per_s=[e["size"] / e["epoch_time"] for e in epochs]

@@ -42,7 +42,13 @@ A training forward of the encoder is the ``record_function`` span
 backward is the span ``train.encode.backward`` on autograd's thread
 (``backward_span``): gradient hooks open it at the first gradient of the
 encoder's outputs and close it once its inputs' gradients are complete.
-Without a profiler no hook is registered.
+Without a profiler, or while the current stream is capturing a CUDA
+graph (a replay runs no Python), no hook is registered.
+
+``graph_version`` counts the graphs the encoder has built: a trainer
+that replays captured steps drops them when it changes (``set_graph``,
+``prepare_job``'s halo rebuild), since a graph reads the tensors that
+were bound when it was captured.
 """
 
 from __future__ import annotations
@@ -258,6 +264,13 @@ def build_halo_layout(graph: Dict[str, Any], keys: Tuple[str, ...], P: int,
     return out
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never on a
+    build without CUDA)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def backward_span(outputs, inputs):
     """The profiler span ``train.encode.backward`` over the backward from
     ``outputs`` to ``inputs``, on the thread that runs it: opened by the
@@ -266,12 +279,18 @@ def backward_span(outputs, inputs):
     backward ends, if none is). Only inputs that an op made carry the
     hooks (a leaf's hook would outlive the graph). The hooks read the
     gradients and change nothing; register them only while a profiler
-    records."""
+    records. When the backward ends the hooks are removed: they hold the
+    graph's nodes in a reference cycle, which would keep them, the
+    leaves' gradient accumulators among them, until a garbage collection.
+    A later step would reuse those accumulators, and each runs on the
+    stream it was made on: a CUDA graph captured on another stream then
+    fails."""
     outputs = [t for t in outputs if t.requires_grad]
     inputs = [t for t in inputs if t.grad_fn is not None]
     if not outputs or not inputs:
         return
     record = None
+    handles = []
 
     def close(*_):
         nonlocal record
@@ -279,15 +298,22 @@ def backward_span(outputs, inputs):
             torch.ops.profiler._record_function_exit._RecordFunction(record)
             record = None
 
+    def finish():
+        close()
+        for handle in handles:
+            handle.remove()
+
     def open_(_):
         nonlocal record
         if record is None:
             record = torch.ops.profiler._record_function_enter_new(
                 "train.encode.backward", None)
-            torch.autograd.Variable._execution_engine.queue_callback(close)
+            torch.autograd.Variable._execution_engine.queue_callback(finish)
 
-    torch.autograd.graph.register_multi_grad_hook(outputs, open_, mode="any")
-    torch.autograd.graph.register_multi_grad_hook(inputs, close, mode="all")
+    handles.append(torch.autograd.graph.register_multi_grad_hook(
+        outputs, open_, mode="any"))
+    handles.append(torch.autograd.graph.register_multi_grad_hook(
+        inputs, close, mode="all"))
 
 
 class Rgnn(KgeBase):
@@ -521,6 +547,8 @@ class RgnnEncoder(KgeBase):
         self.halo_layout: Optional[Dict[str, Any]] = None
         self._graph_np: Dict[str, Any] = {}
         self._graph: Dict[str, Any] = {}
+        #: bumped by every rebuild of the graph's tensors
+        self.graph_version = 0
         self.set_graph(None)
 
     def set_graph(self, triples: Optional[np.ndarray]):
@@ -548,6 +576,7 @@ class RgnnEncoder(KgeBase):
                 for key, orders in self._graph_np["spectral"].items()}
         self._maybe_build_halo()
         self._maybe_build_dense()
+        self.graph_version += 1
 
     def _maybe_build_halo(self):
         """The halo route's layout of this rank's block (``graph["halo"]``)
@@ -626,6 +655,7 @@ class RgnnEncoder(KgeBase):
             self._mesh = mesh
             self._maybe_build_halo()
             self._maybe_build_dense()
+            self.graph_version += 1
 
     def graph(self) -> Dict[str, Any]:
         return self._graph
@@ -650,7 +680,8 @@ class RgnnEncoder(KgeBase):
             x, r = self.rgnn(x0, r0, self._graph, ctx)
             if not self.reciprocal_scorer:
                 r = r[: self.dataset.num_relations()]
-        if ctx.train and torch.autograd._profiler_enabled():
+        if (ctx.train and torch.autograd._profiler_enabled()
+                and not capturing()):
             backward_span((x, r), (x0, r0))
         ctx.cache[cache_key] = (x, r)
         return x, r
@@ -716,6 +747,10 @@ class KgeRgnnModel(KgeModel):
 
     def set_graph(self, triples):
         self.encoder.set_graph(triples)
+
+    @property
+    def graph_version(self) -> int:
+        return self.encoder.graph_version
 
     def prepare_job(self, job, **kwargs):
         super().prepare_job(job, **kwargs)

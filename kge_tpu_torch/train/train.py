@@ -27,7 +27,8 @@ memory without waiting, per-step metrics stay device tensors, and they
 come back in one transfer when the epoch ends (NaN checks included).
 ``torch.profiler.record_function`` spans (``train.collate``,
 ``train.upload``, ``train.forward``, ``train.backward``,
-``train.optimizer``, ``train.fetch``) name the phases a profile reads;
+``train.optimizer``, ``train.replay``, ``train.fetch``) name the phases
+a profile reads;
 they cost nothing without a profiler. An R-GNN encoder adds its own
 (``models/rgnn``): ``train.encode`` inside ``train.forward``, with
 ``train.encode.messages`` and ``train.encode.aggregate`` inside it, and,
@@ -53,11 +54,18 @@ dropout generators are registered with each graph (replays draw what
 the eager steps would), the model state is updated in place, a
 row-sparse step's row payload goes into the graph's buffers with the
 rest of the batch, and the kernel launch counters gain a graph's
-captured launches on each replay. ``_capture_unsupported_reasons`` is
-the predicate that keeps a job's groups eager (logged once): an R-GNN
-encoder (its graph and output kept between calls), graph sampling, a
-device mesh. Such groups, and every group on the CPU, run their k steps
-eagerly with the same math. A capture or replay that fails raises.
+captured launches on each replay (the spectral route's ``ccorr_reduce``
+among them). An R-GNN encoder on a fixed graph is captured too: its
+graph's tensors stay where the capture read them, its forward's memo
+lives in each step's ``Ctx``, and the captured groups are dropped when
+the encoder rebuilds its graph (``graph_version``). A replay is the span
+``train.replay``; ``replayed_batches`` counts the epoch's batches that
+ran inside one, and a capturing job logs it with each epoch.
+``_capture_unsupported_reasons`` is the predicate that keeps a job's
+groups eager (logged once): graph sampling (a new graph every epoch)
+and a device mesh (its collectives). Such groups, and every group on
+the CPU, run their k steps eagerly with the same math. A capture or
+replay that fails raises.
 ``_prefetch`` runs the batch generator in a producer thread
 (``tpu.prefetch_batches``, ``train.num_workers``); its draws and order
 are the serial loop's.
@@ -108,6 +116,7 @@ from kge_tpu_torch.config import Config
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.models import Ctx, KgeModel
 from kge_tpu_torch.models.api import BatchShard, copy_state
+from kge_tpu_torch.ops.ccorr_reduce import ccorr_reduce
 from kge_tpu_torch.ops.negsamp_loss import shared_ce_loss
 from kge_tpu_torch.ops.row_update import adagrad_row_update, sgd_row_update
 from kge_tpu_torch.parallel import distributed as dist
@@ -124,9 +133,10 @@ from kge_tpu_torch.utils.seed import (
 from kge_tpu_torch.utils.trace import format_trace_entry
 
 #: the counted kernel wrappers a captured step can call (``launches``):
-#: the fused loss and the row updates; a graph replay adds the launches
-#: its capture recorded
-COUNTED_KERNELS = (shared_ce_loss, adagrad_row_update, sgd_row_update)
+#: the fused loss, the row updates and the spectral route's reduce; a
+#: graph replay adds the launches its capture recorded
+COUNTED_KERNELS = (shared_ce_loss, adagrad_row_update, sgd_row_update,
+                   ccorr_reduce)
 
 
 def _prefetch(gen, depth: int):
@@ -273,6 +283,10 @@ class TrainingJob(TrainingOrEvaluationJob):
         #: captured groups by (signature, k) and their replays so far
         self._graphs: Dict[Any, _Graph] = {}
         self.graph_replays = 0
+        #: the model's ``graph_version`` the captured groups read
+        self._graphs_version = None
+        #: batches of the current (or last) epoch run inside a replay
+        self.replayed_batches = 0
         self._capture: Optional[bool] = None  # decided at the first group
         self._capture_stream = None
         self._lr_buffer: Optional[torch.Tensor] = None
@@ -403,13 +417,14 @@ class TrainingJob(TrainingOrEvaluationJob):
         host between steps: no tensor rebound between steps, no
         collective outside the graph, no host payload of another shape.
         Dropout (its generator registered with the graph), the model
-        state (updated in place) and row-sparse steps (their row payload
-        in the graph's buffers, the learning rate read on the device)
-        are captured."""
+        state (updated in place), row-sparse steps (their row payload in
+        the graph's buffers, the learning rate read on the device) and
+        R-GNN encoders on a fixed graph (no layer reads the host inside
+        a step; a rebuilt graph drops the captured groups) are captured.
+        Eager stay: steps under a device mesh (their collectives) and,
+        in negative sampling, graph sampling (a new graph every
+        epoch)."""
         reasons = []
-        if hasattr(self.model, "set_graph"):
-            reasons.append("an R-GNN encoder keeps its graph and its "
-                           "output between calls")
         if self.mesh is not None:
             reasons.append("steps under a device mesh run their collectives "
                            "eagerly (collectives are not captured into "
@@ -667,6 +682,11 @@ class TrainingJob(TrainingOrEvaluationJob):
         ``host``: the group's inputs as host arrays."""
         if not self._captures():
             return run(self._put_batch(host))
+        version = getattr(self.model, "graph_version", None)
+        if version != self._graphs_version:
+            # a rebuilt encoder graph: the captured groups read the old one
+            self._graphs = {}
+            self._graphs_version = version
         entry = self._graphs.get(key)
         if entry is None:
             return self._capture_group(key, host, run)
@@ -676,10 +696,12 @@ class TrainingJob(TrainingOrEvaluationJob):
                 to_device(self._host_array(host[name]), self.device,
                           out=buffer)
         self._prepare_time += time.time() - t0
-        entry.graph.replay()
+        with record_function("train.replay"):
+            entry.graph.replay()
         for wrapper, n in entry.launches:
             wrapper.launches += n
         self.graph_replays += 1
+        self.replayed_batches += entry.out.shape[0]
         return entry.names, entry.out.clone()
 
     def _capture_group(self, key, host: Dict[str, np.ndarray],
@@ -875,6 +897,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         self._seed_generators(self.epoch)
         epoch_start = time.time()
         self._prepare_time = 0.0
+        self.replayed_batches = 0
         batch_metrics: List[Tuple[np.ndarray, List[str], list]] = []
         num_batches = 0
         group_size = self._steps_per_dispatch()
@@ -1047,6 +1070,11 @@ class TrainingJob(TrainingOrEvaluationJob):
         line = format_trace_entry("train_epoch", trace_entry, self.config)
         if line:
             self.config.log(line)
+        if self._capture:
+            # beside the trace entry, whose keys are kge_tpu's
+            self.config.log(f"Epoch {self.epoch}: {self.replayed_batches} "
+                            f"of {num_batches} batches replayed as CUDA "
+                            "graphs.")
         if self.config.get("train.trace_level") == "batch":
             # one entry per real batch, grouped dispatches included
             for batch_index, (_, metrics) in enumerate(per_batch):

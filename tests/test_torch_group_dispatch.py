@@ -21,11 +21,22 @@ negative sampling.
   ``kge_tpu``'s epoch in groups of 4 within the trainers' tolerances;
 - K3's plain version gives the same bits for a float learning rate and a
   0-d float32 tensor;
-- ``_capture_unsupported_reasons`` lets dropout, model state and
-  row-sparse steps through and still names an R-GNN encoder, a device
-  mesh and graph sampling.
+- ``_capture_unsupported_reasons`` lets dropout, model state,
+  row-sparse steps and an R-GNN encoder on a fixed graph through and
+  still names a device mesh and graph sampling;
+- a replay (a stand-in graph on the CPU) adds its captured launches,
+  ``ccorr_reduce``'s among them, counts its batches and is the span
+  ``train.replay``; a rebuilt encoder graph (``set_graph``,
+  ``prepare_job``'s halo rebuild) drops the captured groups;
+- on a card (``cuda``): captured R-GNN jobs (CompGCN's spectral route
+  with dropout and batch-norm state, RAGAT's attention, R-GCN's
+  blocks) equal their per-batch eager jobs bit for bit, a resumed
+  captured run the uninterrupted one, and ``ccorr_reduce`` counts 6
+  launches a step through the replays; under a profiler, a capture
+  after an eager step succeeds.
 """
 
+import gc
 import os
 from types import SimpleNamespace
 
@@ -35,16 +46,23 @@ import pytest
 import torch
 import yaml
 
+from torch.profiler import ProfilerActivity, profile
+
 from kge_tpu_torch import Config, Dataset
 from kge_tpu_torch.ops import row_update as ru
+from kge_tpu_torch.ops.ccorr_reduce import ccorr_reduce
 from kge_tpu_torch.train.job import Job
-from kge_tpu_torch.train.train import TrainingJob
+from kge_tpu_torch.train.train import COUNTED_KERNELS, TrainingJob, _Graph
 from kge_tpu_torch.utils.io import load_checkpoint
 from tests.test_torch_model_zoo_train import (
     CASES as ZOO, NO_CONVE_DROPOUT, jobs as zoo_jobs,
     make_config as zoo_config,
 )
 from tests.test_torch_sparse_train import SPARSE, TABLES
+from tests.test_torch_tracing import (
+    COMPGCN_CONVE, NEGATIVE_SAMPLING, ROUTES, make_job as rgnn_make_job,
+    options as rgnn_options,
+)
 from tests.test_torch_train import (
     TABLE_TOL, TOY, assert_tables_close, first_batch_loss, jax_job,
     jax_tables, port_job, port_tables, record_epochs,
@@ -145,7 +163,7 @@ def batch_losses(job):
 
 
 def state_arrays(job):
-    return {f"{k}.{s}": v[s].numpy().copy()
+    return {f"{k}.{s}": v[s].cpu().numpy().copy()
             for k, v in job.model.model_state.items() for s in v}
 
 
@@ -153,12 +171,12 @@ def assert_same_run(a, b):
     """Parameters, optimizer state and model state equal bit for bit."""
     for (name, x), (_, y) in zip(a.model.named_parameters(),
                                  b.model.named_parameters()):
-        np.testing.assert_array_equal(x.detach().numpy(),
-                                      y.detach().numpy(), err_msg=name)
+        np.testing.assert_array_equal(x.detach().cpu().numpy(),
+                                      y.detach().cpu().numpy(), err_msg=name)
     for slot, tensors in a.opt_state.items():
         for key, value in tensors.items():
             np.testing.assert_array_equal(
-                value.numpy(), b.opt_state[slot][key].numpy(),
+                value.cpu().numpy(), b.opt_state[slot][key].cpu().numpy(),
                 err_msg=f"{slot}/{key}")
     sa, sb = state_arrays(a), state_arrays(b)
     assert sa.keys() == sb.keys()
@@ -382,14 +400,28 @@ def test_capture_takes_dropout_state_and_row_sparse_steps(tmp_path):
     assert reasons(sparse) == []
 
 
-def test_capture_still_refuses_rgnn_mesh_and_graph_sampling(tmp_path):
+def toy_compgcn_job(**options):
+    """``examples/toy-transe-compgcn-train.yaml`` on the CPU."""
     config = Config(folder=None)
     config.load(os.path.join(REPO, "examples",
                              "toy-transe-compgcn-train.yaml"))
-    config.set("job.device", "cpu")
-    config.set("console.quiet", True)
-    rgnn = TrainingJob.create(config, Dataset.create(config, TOY))
-    assert any("R-GNN encoder" in r for r in reasons(rgnn))
+    for key, value in {"job.device": "cpu", "console.quiet": True,
+                       **options}.items():
+        config.set(key, value)
+    return TrainingJob.create(config, Dataset.create(config, TOY))
+
+
+def test_capture_still_refuses_rgnn_mesh_and_graph_sampling(tmp_path):
+    """An R-GNN encoder on a fixed graph is captured; graph sampling and
+    a device mesh keep their reasons, with an encoder or without."""
+    rgnn = toy_compgcn_job()
+    assert reasons(rgnn) == []
+    rgnn.mesh = SimpleNamespace(shape={"data": 1, "model": 2})
+    assert any("device mesh" in r for r in reasons(rgnn))
+    rgnn_sampled = toy_compgcn_job(**{
+        "negative_sampling.graph_sampling": "uniform",
+        "negative_sampling.graph_sampling_size": 200})
+    assert any("graph sampling" in r for r in reasons(rgnn_sampled))
     sampled = port_job({"negative_sampling.graph_sampling": "uniform",
                         "negative_sampling.graph_sampling_size": 200})
     assert any("graph sampling" in r for r in reasons(sampled))
@@ -397,3 +429,209 @@ def test_capture_still_refuses_rgnn_mesh_and_graph_sampling(tmp_path):
     assert reasons(mesh) == []
     mesh.mesh = SimpleNamespace(shape={"data": 2, "model": 1})
     assert any("device mesh" in r for r in reasons(mesh))
+
+
+class StandInGraph:
+    """A captured graph's stand-in on the CPU: counts its replays."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def standing_in(job, k: int = 4, launches=((ccorr_reduce, 24),)):
+    """``job`` dispatches as on a card, each capture a stand-in graph of
+    ``k`` steps that recorded ``launches``; returns the keys captured."""
+    captured = []
+
+    def capture(key, host, run):
+        out = torch.zeros(k, 1)
+        job._graphs[key] = _Graph(StandInGraph(), {}, ["avg_loss"], out,
+                                  list(launches))
+        captured.append(key)
+        return ["avg_loss"], out.clone()
+
+    job._capture = True
+    job._capture_group = capture
+    return captured
+
+
+def test_replay_counts_launches_batches_and_its_span():
+    """The spectral route's reduce is a counted kernel: a replay adds the
+    launches its capture recorded (6 a step, 4 steps), counts its 4
+    batches in ``replayed_batches`` and runs in ``train.replay``."""
+    assert ccorr_reduce in COUNTED_KERNELS
+    job = toy_compgcn_job()
+    captured = standing_in(job)
+    before = ccorr_reduce.launches
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(3):
+                names, out = job._dispatch_group("key", {}, None)
+                assert names == ["avg_loss"] and tuple(out.shape) == (4, 1)
+        assert ccorr_reduce.launches - before == 2 * 24
+    finally:
+        ccorr_reduce.launches = before
+    assert captured == ["key"]
+    assert job._graphs["key"].graph.replays == job.graph_replays == 2
+    assert job.replayed_batches == 8
+    spans = [e for e in prof.events() if e.name == "train.replay"]
+    assert len(spans) == 2
+
+
+@pytest.mark.parametrize("rebuild", ["set_graph", "halo"])
+def test_rebuilt_encoder_graph_drops_captured_groups(rebuild):
+    """A graph replays the tensors bound when it was captured: after
+    ``set_graph`` (graph sampling's rebuild) or ``prepare_job``'s halo
+    rebuild under a model axis, the next group is captured anew; an
+    unchanged graph keeps its groups."""
+    job = toy_compgcn_job()
+    captured = standing_in(job)
+    job._dispatch_group("a", {}, None)
+    job._dispatch_group("b", {}, None)
+    job._dispatch_group("a", {}, None)
+    assert captured == ["a", "b"] and job.graph_replays == 1
+    version = job.model.graph_version
+    if rebuild == "set_graph":
+        job.model.set_graph(None)
+    else:
+        job.model.encoder.prepare_job(SimpleNamespace(mesh=SimpleNamespace(
+            shape={"data": 1, "model": 2}, model_index=0,
+            group=lambda name: None)))
+    assert job.model.graph_version == version + 1
+    job._dispatch_group("a", {}, None)
+    assert captured == ["a", "b", "a"] and set(job._graphs) == {"a"}
+    job._dispatch_group("a", {}, None)
+    assert captured == ["a", "b", "a"] and job.graph_replays == 2
+
+
+# ----------------------------------------------------------------- on a card
+
+#: R-GNN jobs a card captures, on data/toy with every dropout on: CompGCN
+#: on the spectral route (ccorr) with batch-norm state and a reciprocal
+#: ConvE by KvsAll; RAGAT's attention softmax and R-GCN's block
+#: decomposition by negative sampling
+RGNN_CAPTURED = {
+    "compgcn-ccorr-conve-kvsall": COMPGCN_CONVE,
+    "ragat-attention": (ROUTES["attention"][0], {**ROUTES["attention"][1],
+                                                 **NEGATIVE_SAMPLING}),
+    "rgcn-blocks": ("rgcn", {
+        **rgnn_options("rgcn", weight_decomposition="block",
+                       num_blocks_or_bases=2),
+        "rgcn.decoder.model": "distmult", "rgcn.decoder.type": "distmult",
+        **NEGATIVE_SAMPLING}),
+}
+
+
+def card_rgnn_job(case, folder, **extra):
+    return rgnn_make_job(RGNN_CAPTURED[case], folder, **{
+        "job.device": "cuda", "train.max_epochs": 2,
+        "train.trace_level": "batch", **GROUP, **extra})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RGNN_CAPTURED))
+def test_rgnn_captured_groups_equal_per_batch_steps(case, tmp_path,
+                                                    monkeypatch):
+    """On a card, 2 epochs in captured groups of 4 and the same batches one
+    eager step at a time give the same epoch and batch losses, dropout
+    generator state, parameters, Adam state and model state, bit for bit;
+    a captured run resumed after epoch 1 equals the uninterrupted one; the
+    groups replay, and the spectral route's reduce counts 6 launches a
+    step through the replays. Under deterministic algorithms: the
+    encoder's and the embeddings' gradients are summed with atomics
+    otherwise, and two eager runs part in the last bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (captured steps run on a card)")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs, losses, launches = {}, {}, {}
+        for label, k in (("captured", 4), ("per-batch", 1)):
+            job = card_rgnn_job(case, tmp_path / label,
+                                **{"tpu.steps_per_dispatch": k})
+            if k == 1 and job.config.get("train.type") == "KvsAll":
+                in_group_order(job, 4)
+            losses[label] = record_epochs(job)
+            before = ccorr_reduce.launches
+            job.run()
+            torch.cuda.synchronize()
+            launches[label] = ccorr_reduce.launches - before
+            runs[label] = job
+        cut = card_rgnn_job(case, tmp_path / "cut", **{
+            "train.max_epochs": 1, "train.checkpoint.every": 1})
+        cut.run()
+        resumed = Job.create_from(
+            load_checkpoint(cut.config.checkpoint_file(1)),
+            dataset=cut.dataset)
+        resumed.config.set("train.max_epochs", 2)
+        resumed_losses = record_epochs(resumed)
+        resumed.run()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    captured, per_batch = runs["captured"], runs["per-batch"]
+    assert captured._capture and captured.graph_replays > 0
+    assert 0 < captured.replayed_batches <= captured.current_trace[
+        "epoch"]["batches"]
+    assert per_batch.graph_replays == 0
+    assert len(losses["captured"]) == 2
+    assert losses["captured"] == losses["per-batch"]
+    assert batch_losses(captured) == batch_losses(per_batch)
+    assert torch.equal(captured._dropout_gen.get_state(),
+                       per_batch._dropout_gen.get_state())
+    assert_same_run(captured, per_batch)
+    assert resumed.graph_replays > 0
+    assert resumed_losses == losses["captured"][1:]
+    assert_same_run(captured, resumed)
+    steps = len(batch_losses(captured))
+    if case.startswith("compgcn"):
+        assert captured.model.model_state
+        assert launches["captured"] == launches["per-batch"] == 6 * steps
+    else:
+        assert launches["captured"] == launches["per-batch"] == 0
+
+
+def signature(batch):
+    """A host batch's structure, as the epoch loop groups batches."""
+    return tuple((key, np.shape(v), str(np.asarray(v).dtype))
+                 for key, v in sorted(batch.items()))
+
+
+@pytest.mark.cuda
+def test_capture_after_a_profiled_eager_step(tmp_path):
+    """Under a profiler, with the garbage collector off: one eager step
+    on the default stream (its encoder's backward hooked for the span),
+    then 8 batches of another structure, a capture and a replay. The
+    eager step's hooks must not keep its graph: the leaves' gradient
+    accumulators it made on the default stream would be reused by the
+    capture and fail it (``cudaErrorStreamCaptureImplicit``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (captured steps run on a card)")
+    job = card_rgnn_job("compgcn-ccorr-conve-kvsall", tmp_path)
+    job._prepare()
+    job._is_prepared = True
+    job.epoch = 1
+    batches = list(job._generate_batches(1))
+    first = signature(batches[0])
+    group = [b for b in batches if signature(b) != first][:8]
+    assert len(group) == 8
+    job._generate_batches = lambda epoch: iter([batches[0]] + group)
+    gc.collect()
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            job.run_epoch()
+            torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    assert job._capture and len(job._graphs) == 1
+    assert job.graph_replays == 1 and job.replayed_batches == 4
+    # the host's spans (each also has an annotation on the device)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert names.count("train.encode.backward") >= 1
+    assert names.count("train.replay") == 1

@@ -9,19 +9,24 @@ data/toy, every dropout on, give the same losses, gradients, Adam state,
 model state and weights bit for bit with the profiler off and on. The
 encoder's other routes (the dense adjacency, per-relation weights, the
 attention softmax) name their phases alike, and ``tpu.profile_dir``'s
-Chrome trace carries the four names."""
+Chrome trace carries the four names. While a CUDA graph is captured the
+encoder registers no backward hook, and the hooks it registers hold no
+graph once the backward has ended."""
 
 import contextlib
+import gc
 import glob
 import itertools
 import json
 import os
+import weakref
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from kge_tpu_torch import Config, Dataset
+from kge_tpu_torch.models.rgnn.encoder import backward_span
 from kge_tpu_torch.train.train import TrainingJob
 
 torch.set_num_threads(1)
@@ -246,6 +251,73 @@ def test_no_span_or_hook_without_a_profiler(tmp_path, monkeypatch):
         run_steps(make_job(COMPGCN_CONVE, tmp_path / "traced"))
     # one for the outputs, one for the inputs, each step
     assert len(registered) == 2 * STEPS
+
+
+def test_no_hook_while_capturing(tmp_path, monkeypatch):
+    """While the current stream captures a CUDA graph (faked here) the
+    encoder registers no gradient hook, under a profiler too: a replay
+    runs no Python, and the hooks' span would mean nothing there. The
+    forward's spans stay."""
+    registered = []
+    real = torch.autograd.graph.register_multi_grad_hook
+
+    def counting(*args, **kwargs):
+        registered.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.autograd.graph, "register_multi_grad_hook",
+                        counting)
+    job = make_job(COMPGCN_CONVE, tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with monkeypatch.context() as capture:
+            capture.setattr(torch.cuda, "is_available", lambda: True)
+            capture.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+            record = run_steps(job)
+    assert len(record["losses"]) == STEPS and not registered
+    names = [e.name for e in prof.events()]
+    assert names.count("train.encode") == STEPS
+    assert "train.encode.backward" not in names
+
+
+class Kept(torch.autograd.Function):
+    """The identity, whose graph node holds ``marker`` while it lives."""
+
+    @staticmethod
+    def forward(ctx, x, marker):
+        ctx.marker = marker
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def test_backward_span_holds_no_graph_after_the_backward():
+    """With the garbage collector off, a graph whose backward ran under
+    the span goes with its last reference: the span's hooks are removed
+    when the backward ends (they hold the graph's nodes in a cycle, so a
+    later step would reuse the leaves' gradient accumulators, and with
+    them the stream they were made on, which fails a CUDA graph capture
+    on another stream)."""
+    class Marker:
+        pass
+
+    marker = Marker()
+    probe = weakref.ref(marker)
+    w = torch.nn.Parameter(torch.randn(4, 3))
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            x0 = Kept.apply(w * 2, marker)
+            x = (x0 * 3).tanh()
+            backward_span((x,), (x0,))
+            x.sum().backward()
+        del marker, x0, x
+        assert probe() is None
+    finally:
+        gc.enable()
+    assert [e.name for e in prof.events()].count("train.encode.backward") == 1
 
 
 def test_profile_dir_trace_names_the_encoder(tmp_path):
